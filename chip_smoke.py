@@ -3,33 +3,50 @@
 NVIDIA card.
 
 Usage, from the root of a checkout:   python3 chip_smoke.py [--batch N]
-(default batch 128, the JAX bench's)
+(default batch 128, the JAX bench's, for the classifier path)
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
-1. device   the card's name and power limit (nvidia-smi), torch, CUDA and
-            Triton versions.
-2. kernels  builds the Triton kernels of the slice from the sources in the
+1. device   the card's name and power limit (nvidia-smi), torch, CUDA,
+            nvcc and Triton versions; starts the nvcc build of the CUDA
+            kernel library in the background.
+2. kernels  builds the kernels of both slices from the sources in the
             checkout and holds each against its plain PyTorch version on
-            the card: at the 12 BatchNorm (R, C) shapes of ResNet-50@448
-            (R × batch) and one ragged shape, on integer-valued bf16 inputs
-            (the sums are exact in f32: no difference is allowed) and on
-            normal bf16 inputs (|kernel − plain| ≤ 1e-5·Σ|terms| + 1e-6);
+            the card:
+            - bn_stats / bn_corr (Triton) at the 12 BatchNorm (R, C)
+              shapes of ResNet-50@448 (R × batch) and one ragged shape, on
+              integer-valued bf16 inputs (the sums are exact in f32: no
+              difference is allowed) and on normal bf16 inputs
+              (|kernel − plain| ≤ 1e-5·Σ|terms| + 1e-6);
+            - pairwise_order (CUDA C++) at the three (M, N, D) shapes of
+              the joint eval and a few ragged ones, on integer-valued
+              inputs (exact) and normal f32 inputs (|kernel − plain| ≤
+              1e-5·Σ_d terms + 1e-6);
             then batch_norm_train's forward and backward on the card
-            against the CPU path, and one small ResNet-50 train step on the
-            card against the CPU.
-3. slice    the main path: ClassifierTrainer(resnet50, multi_level_ce,
-            adam, lr 1e-5, 448², bn_impl='pallas', bf16 trunk) on the
-            taxonomy of entry.ethec_labelmap(), synthetic uint8 NHWC images
-            from a seeded generator; 2 warm-up and 5 timed steps.
-            Asserts finite losses, 53 launches of each kernel per step, and
-            no channels_last copy.
-4. measure  ms/step, images/s, peak memory; the profiler's device time of
-            each kernel per step and the device's busy share; and, for
-            one step's 53 launches of each kernel, the kernel's time, its
-            plain version's, the library call's (torch.batch_norm_stats /
-            torch.batch_norm_backward_reduce) and the bound.
+            against the CPU path, one small classifier train step and one
+            small joint step with its eval on the card against the CPU.
+3. slice 1  the classifier path: ClassifierTrainer(resnet50,
+            multi_level_ce, adam, lr 1e-5, 448², bn_impl='pallas', bf16
+            trunk) on the taxonomy of entry.ethec_labelmap(), synthetic
+            uint8 NHWC images from a seeded generator; 2 warm-up and 3
+            timed steps. Asserts finite losses, 53 launches of each BN
+            kernel per step, and no channels_last copy. Then the
+            profiler's view of one step.
+4. slice 2  the joint path: JointCNNTrainer(resnet50, 448², order energy,
+            dim 10, 16 label→image edges a step, ratio 5, alpha 0.05,
+            pick_per_level, lr 1e-2/1e-3, bf16 tower) on the same
+            taxonomy with 2048 synthetic train images and a seeded uint8
+            pixel bank; batches prepared up front; 2 warm-up and 5 timed
+            steps, then the runner's eval: embeddings of a 5286-image val
+            split (the ETHEC val split's size) in chunks of 128,
+            classification metrics, val edge metrics (which calibrate the
+            threshold), reconstruction, and the test metrics of a
+            5049-image split at that threshold. Asserts finite losses,
+            53 + 53 BN launches per step and at least 2 pairwise_order
+            launches, and holds the eval's energies from the kernel
+            against the plain version on the card. Then the profiler's
+            view of one joint step.
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last is {"ok": true, "device": {...}}. A `kernels` JSON line and the
@@ -60,9 +77,20 @@ RESNET50_448_BN = {
     (784, 512): 1, (784, 1024): 7, (196, 512): 5, (196, 2048): 4,
 }
 RAGGED = (12345, 100)
-KERNEL_SRC = "learning_embeddings_tpu_torch/ops/bn_triton.py"
+KERNEL_SRC = {"bn_stats": "learning_embeddings_tpu_torch/ops/bn_triton.py",
+              "bn_corr": "learning_embeddings_tpu_torch/ops/bn_triton.py",
+              "pairwise_order":
+                  "learning_embeddings_tpu_torch/csrc/pairwise_order.cu"}
 TPU_KERNELS = {"bn_stats": "learning_embeddings_tpu/ops/bn_pallas.py:52",
-               "bn_corr": "learning_embeddings_tpu/ops/bn_pallas.py:64"}
+               "bn_corr": "learning_embeddings_tpu/ops/bn_pallas.py:64",
+               "pairwise_order":
+                   "learning_embeddings_tpu/geometry/pairwise.py:46"}
+#: sizes of the ETHEC val and test splits: the joint eval's image counts
+VAL_IMAGES, TEST_IMAGES = 5286, 5049
+EMB_DIM = 10
+#: ragged (M, N, D) shapes for the pairwise_order check, beside the eval's
+K3_RAGGED = [(1, 1, 1), (37, 129, 10), (130, 7, 3), (5, 300, 131),
+             (65, 4097, 10)]
 
 
 def log(*a):
@@ -97,15 +125,37 @@ def smi_line():
 def device_phase():
     import torch
     import triton
+    from torch.utils.cpp_extension import CUDA_HOME
 
     smi = smi_line()
     log(f"[device] {smi}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"triton {triton.__version__} python {sys.version.split()[0]}")
+    nvcc = subprocess.run([os.path.join(CUDA_HOME or "", "bin", "nvcc"),
+                           "--version"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+    log(f"[device] nvcc: {nvcc.splitlines()[-1]}")
     props = torch.cuda.get_device_properties(0)
     log(f"[device] {props.name}: {props.multi_processor_count} SMs, "
         f"{props.total_memory / 2**30:.1f} GiB")
     return smi
+
+
+def start_cuda_build():
+    """Starts the nvcc build of the CUDA kernel library (one nvcc per
+    source; there is one) on a worker thread, beside the Triton builds of
+    the BN checks; returns (future, start time)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from learning_embeddings_tpu_torch.ops import pairwise_order
+
+    def build():
+        return pairwise_order.build_library(), time.perf_counter()
+
+    ex = ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(build)
+    ex.shutdown(wait=False)   # the thread ends with the build
+    return fut, time.perf_counter()
 
 
 # --------------------------------------------------------------------------
@@ -265,6 +315,107 @@ def bound_ms(R, C, n_in):
     return 1e3 * max(by_bytes, by_ops)
 
 
+def k3_bound(M, N, D):
+    """(bound ms, bound_by) of pairwise_order: u and v read once and the
+    (M, N) f32 output written once over the HBM rate, against a sub, a max
+    and an FMA (two flops) per (i, j, d) over the f32 rate."""
+    by_bytes = 4 * (M * D + N * D + M * N) / HBM_BYTES_PER_S
+    by_ops = 4 * M * N * D / F32_FLOPS
+    return 1e3 * max(by_bytes, by_ops), \
+        ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def k3_build_report(build):
+    """Waits for the nvcc build; logs its time and ptxas' resource use."""
+    fut, t0 = build
+    so, t1 = fut.result()
+    seconds = t1 - t0
+    with open(so[:-3] + ".log") as f:
+        report = [ln.strip() for ln in f if "ptxas info" in ln]
+    log(f"[kernels] pairwise_order library {os.path.basename(so)} built "
+        f"in {seconds:.1f} s (nvcc, beside the Triton builds)")
+    for ln in report:
+        log(f"[kernels]   {ln}")
+    return {"library": os.path.basename(so), "build_s": seconds,
+            "ptxas": report}
+
+
+def check_k3(M, N, D, gen, timed):
+    """pairwise_order against its plain version at (M, N, D): integer
+    inputs exactly, normal inputs within 1e-5·Σ_d terms + 1e-6; with
+    `timed`, the device ms of both (CUDA graph, inputs rotated past the
+    L2) and the kernel's eager ms."""
+    import torch
+
+    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+
+    def ints(n):
+        return torch.randint(-3, 4, (n, D), device=DEV, generator=gen) \
+            .float()
+
+    ui, vi = ints(M), ints(N)
+    got, exact = k3.pairwise_order(ui, vi), k3.pairwise_order_plain(ui, vi)
+    if not torch.equal(got, exact):
+        raise AssertionError(f"pairwise_order {(M, N, D)}: integer inputs "
+                             f"differ by {(got - exact).abs().max().item()}")
+    u = torch.randn((M, D), device=DEV, generator=gen)
+    v = torch.randn((N, D), device=DEV, generator=gen)
+    err = k3_compare(f"pairwise_order {(M, N, D)}", k3.pairwise_order(u, v),
+                     k3.pairwise_order_plain(u, v))
+    row = {"M": M, "N": N, "D": D, "max_abs_err": err}
+    if timed:
+        copies = [(torch.randn((M, D), device=DEV, generator=gen),
+                   torch.randn((N, D), device=DEV, generator=gen))
+                  for _ in range(n_copies(4 * (M * D + N * D + M * N)))]
+        bound, by = k3_bound(M, N, D)
+        row.update(ms=device_ms(k3.pairwise_order, copies),
+                   plain_ms=device_ms(k3.pairwise_order_plain, copies),
+                   eager_ms=cuda_ms(k3.pairwise_order, copies),
+                   bound_ms=bound, bound_by=by)
+    return row
+
+
+def k3_compare(what, got, ref):
+    """|kernel − plain| ≤ 1e-5·Σ_d terms + 1e-6; `ref` is that sum (the
+    terms are non-negative). Returns the largest difference."""
+    diff = (got - ref).abs()
+    if got.shape != ref.shape or not bool((diff <= 1e-5 * ref + 1e-6)
+                                          .all()):
+        raise AssertionError(f"{what}: kernel and plain version differ by "
+                             f"{diff.max().item() if diff.numel() else '?'} "
+                             f"(tolerance 1e-5·Σ terms + 1e-6)")
+    return diff.max().item() if diff.numel() else 0.0
+
+
+def k3_phase(build, n_labels):
+    """pairwise_order at the joint eval's shapes (timed) and ragged ones."""
+    import torch
+
+    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+
+    report = k3_build_report(build)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    rows = []
+    path = [(n_labels, VAL_IMAGES, EMB_DIM), (n_labels, n_labels, EMB_DIM),
+            (n_labels, TEST_IMAGES, EMB_DIM)]
+    for shape in path + K3_RAGGED:
+        row = check_k3(*shape, gen, timed=shape in path)
+        row["on_path"] = shape in path
+        rows.append(row)
+        log(f"[kernels] pairwise_order {shape}: err "
+            f"{row['max_abs_err']:.3g}" + (
+                f", {row['ms'] * 1e3:.1f}us (eager "
+                f"{row['eager_ms'] * 1e3:.1f}, plain "
+                f"{row['plain_ms'] * 1e3:.1f}, bound "
+                f"{row['bound_ms'] * 1e3:.2f} by {row['bound_by']})"
+                if row["on_path"] else ""))
+    empty = k3.pairwise_order(torch.zeros((0, EMB_DIM), device=DEV),
+                              torch.zeros((7, EMB_DIM), device=DEV))
+    if empty.shape != (0, 7):
+        raise AssertionError(f"pairwise_order M = 0 gave {empty.shape}")
+    return {"build": report, "shapes": rows}
+
+
 def bn_train_phase():
     """batch_norm_train forward + backward on the card against the CPU."""
     import torch
@@ -365,10 +516,83 @@ def small_step_phase(labelmap):
         torch.backends.cudnn.allow_tf32 = prev_tf32
 
 
+def small_joint_phase(image_size=64):
+    """One f32 JointCNNTrainer step (ResNet-18, order energy) and its eval
+    on the card (kernels) and on the CPU (plain versions), from the same
+    seed: the same weights and host negatives. 24 train images with
+    distinct pixels and 8 label→image edges a step, so the tower sees 16
+    distinct images (with a few repeated ones, a train-mode BN layer at
+    1×1 spatial size normalises a variance near 0, and two summation
+    orders then disagree by far more than rounding). The tower trains at
+    lr 1e-5: Adam's first step moves each weight by about ±lr, and the
+    sign of a gradient within rounding of 0 differs between the two
+    devices; at 1e-3 those entries moved the eval's embeddings by 3.5e-4
+    (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.losses.joint_sampling import (
+        build_joint_graph)
+    from learning_embeddings_tpu_torch.train.joint_cnn import (
+        JointCNNConfig, JointCNNTrainer)
+
+    lm = toy_labelmap(2, 3)
+    rng = np.random.RandomState(0)
+    graph, edges = build_joint_graph(
+        lm, lm.leaf_paths()[rng.randint(0, lm.levels[-1], 24)])
+    bank = rng.randint(0, 256, (24, image_size, image_size, 3)) \
+        .astype(np.uint8)
+    batch = edges[edges[:, 1] >= graph.n_labels][::3][:8]
+    val_paths = (lm.leaf_paths()[rng.randint(0, lm.levels[-1], 12)]
+                 + np.asarray(lm.level_start)[None, :])
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False   # full f32 convs for this check
+    try:
+        res = {}
+        for dev in ("cpu", DEV):
+            tr = JointCNNTrainer(lm, graph, edges, lambda r: bank[r % 24],
+                                 JointCNNConfig(
+                                     backbone="resnet18", embedding_dim=4,
+                                     image_size=image_size, batch_size=8,
+                                     neg_to_pos_ratio=4, alpha=0.5,
+                                     lr_images=1e-5, tower_dtype="float32",
+                                     device=dev))
+            loss, e_pos, e_neg = tr.train_batch(batch[:, 0], batch[:, 1])
+            emb = tr.image_embeddings_for_rows(np.arange(12), batch_size=5)
+            res[dev] = {
+                "loss": loss, "e_pos": e_pos.cpu(), "e_neg": e_neg.cpu(),
+                "emb": emb,
+                "hit@1": tr.classification_metrics(val_paths, emb)["hit@1"],
+                "rec_f1": float(tr.reconstruction().f1)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    card, cpu = res[DEV], res["cpu"]
+    checks = {
+        "loss": abs(card["loss"] - cpu["loss"]) <= 1e-4 * abs(cpu["loss"]),
+        "e_pos": torch.allclose(card["e_pos"], cpu["e_pos"], rtol=1e-3,
+                                atol=1e-4),
+        "e_neg": torch.allclose(card["e_neg"], cpu["e_neg"], rtol=1e-3,
+                                atol=1e-4),
+        "emb": np.allclose(card["emb"], cpu["emb"], rtol=1e-3, atol=1e-4),
+        "hit@1": card["hit@1"] == cpu["hit@1"],
+        "rec_f1": abs(card["rec_f1"] - cpu["rec_f1"]) <= 1e-4,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"small joint step: card and CPU disagree on "
+                             f"{[k for k, ok in checks.items() if not ok]}:"
+                             f" card {card} CPU {cpu}")
+    log(f"[kernels] resnet18 {image_size}² f32 joint step + eval: loss card "
+        f"{card['loss']:.6f} CPU {cpu['loss']:.6f} (limit 1e-4 rel); "
+        f"energies, embeddings (rtol 1e-3, atol 1e-4), hit@1 "
+        f"{card['hit@1']:.4f} and reconstruction F1 {card['rec_f1']:.4f} "
+        f"agree")
+
+
 # --------------------------------------------------------------------------
-# phase 3: the slice
+# phase 3: slice 1, the classifier path
 # --------------------------------------------------------------------------
-def slice_phase(labelmap, batch, steps=5, warmup=2):
+def slice_phase(labelmap, batch, steps=3, warmup=2):
     import torch
 
     from learning_embeddings_tpu_torch.ops import bn, bn_triton
@@ -400,8 +624,7 @@ def slice_phase(labelmap, batch, steps=5, warmup=2):
                                     inp[0].shape[1]))) for m in bns]
 
     # the main path: counts set to 0 just before, read just after
-    bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
-    bn.CHANNELS_LAST_COPIES = 0
+    _reset_counts()
     state, losses = trainer.state, []
     for i in range(warmup):
         state, loss = trainer.train_step(state, *batch_t)
@@ -458,9 +681,16 @@ def slice_phase(labelmap, batch, steps=5, warmup=2):
 
 
 # --------------------------------------------------------------------------
-# phase 4: profile of one step
+# profile of one step
 # --------------------------------------------------------------------------
-def profile_phase(trainer, state, batch_t):
+PROFILED = {"bn_stats": "bn_stats_kernel", "bn_corr": "bn_corr_kernel",
+            "pairwise_order": "pairwise_order_kernel"}
+
+
+def profile_phase(step, tag):
+    """The profiler's view of one call of `step()`: wall time, device busy
+    time and idle share, the time of each kernel of the port and the
+    largest device entries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -468,7 +698,7 @@ def profile_phase(trainer, state, batch_t):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, loss = trainer.train_step(state, *batch_t)
+        step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
 
@@ -482,8 +712,7 @@ def profile_phase(trainer, state, batch_t):
                                  evt.count)
     busy = sum(us for us, _ in per_name.values())
     kern = {}
-    for name, pat in (("bn_stats", "bn_stats_kernel"),
-                      ("bn_corr", "bn_corr_kernel")):
+    for name, pat in PROFILED.items():
         hits = [(k, v) for k, v in per_name.items() if pat in k]
         kern[name] = {"ms": sum(v[0] for _, v in hits) / 1e3,
                       "count": sum(v[1] for _, v in hits)} if hits else None
@@ -494,36 +723,270 @@ def profile_phase(trainer, state, batch_t):
            "top": [{"name": k[:80], "ms": v[0] / 1e3, "count": v[1]}
                    for k, v in top]}
     if busy == 0:
-        log("[measure] the profiler saw no device time: per-step kernel "
+        log(f"[{tag}] the profiler saw no device time: per-step kernel "
             "time from the profiler not measured")
     else:
-        log(f"[measure] profiled step: wall {out['wall_ms']:.2f} ms, device "
+        log(f"[{tag}] profiled step: wall {out['wall_ms']:.2f} ms, device "
             f"busy {out['device_busy_ms']:.2f} ms (idle share "
-            f"{out['idle_share']:.3f}); bn_stats {kern['bn_stats']}, "
-            f"bn_corr {kern['bn_corr']}")
+            f"{out['idle_share']:.3f}); " + ", ".join(
+                f"{k} {v}" for k, v in kern.items() if v))
         for t in out["top"]:
-            log(f"[measure]   {t['ms']:9.3f} ms x{t['count']:<4} {t['name']}")
+            log(f"[{tag}]   {t['ms']:9.3f} ms x{t['count']:<4} {t['name']}")
     return out
 
 
-def per_step_kernel_line(rows, slice_result, prof):
-    """The `kernels` record: one step's 53 launches of each kernel."""
+# --------------------------------------------------------------------------
+# phase 4: slice 2, the joint --use_CNN path and its eval
+# --------------------------------------------------------------------------
+def _unique_tower_images(prepared, n_labels):
+    """Distinct images the tower embeds in one prepared step (the JAX
+    bench's count, bench.py:32-39): image nodes among both endpoints of
+    the positive and negative edges."""
+    import numpy as np
+
+    ids = np.concatenate([prepared[j].cpu().numpy() for j in (1, 2, 3, 4)])
+    return int(len(np.unique(ids[ids >= n_labels])))
+
+
+def _reset_counts():
+    from learning_embeddings_tpu_torch.ops import bn, bn_triton
+    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+
+    bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
+    k3.LAUNCHES = 0
+    bn.CHANNELS_LAST_COPIES = 0
+
+
+def _read_counts():
+    from learning_embeddings_tpu_torch.ops import bn_triton
+    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+
+    return {"bn_stats": bn_triton.STATS_LAUNCHES,
+            "bn_corr": bn_triton.CORR_LAUNCHES,
+            "pairwise_order": k3.LAUNCHES}
+
+
+def _split_paths(labelmap, n, rng):
+    """(n, L) global ancestor paths of n synthetic images of random
+    leaves."""
+    import numpy as np
+
+    leaves = rng.randint(0, labelmap.levels[-1], n)
+    return (labelmap.leaf_paths()[leaves]
+            + np.asarray(labelmap.level_start)[None, :]).astype(np.int32)
+
+
+def joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
+                n_val=VAL_IMAGES, n_test=TEST_IMAGES, eval_chunk=128,
+                steps=5, warmup=2):
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.losses.joint_sampling import (
+        build_joint_graph)
+    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+    from learning_embeddings_tpu_torch.train.joint_cnn import (
+        JointCNNConfig, JointCNNTrainer)
+
+    nl = labelmap.n_classes
+    rng = np.random.RandomState(0)
+    graph, train_edges = build_joint_graph(
+        labelmap, labelmap.leaf_paths()[rng.randint(0, labelmap.levels[-1],
+                                                    n_train)])
+    # label→image edges only: every step drives the tower with pixels
+    img_edges = train_edges[train_edges[:, 1] >= nl]
+    bank = rng.randint(0, 256, (64, image_size, image_size, 3),
+                       dtype=np.uint8)
+
+    def pixel_loader(rows):
+        return bank[np.asarray(rows) % len(bank)]
+
+    cfg = JointCNNConfig(energy="order", backbone="resnet50",
+                         embedding_dim=EMB_DIM, image_size=image_size,
+                         batch_size=batch, neg_to_pos_ratio=5, alpha=0.05,
+                         pick_per_level=True, lr_labels=1e-2,
+                         lr_images=1e-3, tower_dtype="bfloat16", seed=0,
+                         device=DEV)
+    trainer = JointCNNTrainer(labelmap, graph, img_edges[:10000],
+                              pixel_loader, cfg)
+    edges = img_edges[rng.permutation(len(img_edges))]
+
+    # host prep (negatives, pixel gather, copies to the card) up front
+    t0 = time.perf_counter()
+    prepared = [trainer.prepare_batch(*edges[i * batch:(i + 1) * batch].T)
+                for i in range(warmup + steps)]
+    torch.cuda.synchronize()
+    prep_ms = 1e3 * (time.perf_counter() - t0) / len(prepared)
+    timed = prepared[warmup:]
+    n_imgs = sum(_unique_tower_images(p, nl) for p in timed)
+    tower_rows = [int(p[0].shape[0]) for p in prepared]
+
+    # the main path, training and eval: counts set to 0 just before,
+    # read just after
+    _reset_counts()
+    losses = []
+    warmed = set()
+    for p in prepared[:warmup]:
+        warmed.add(p[0].shape[0])
+        losses.append(trainer.train_prepared(p)[0])
+    for p in timed:   # each tower batch size once before the clock
+        if p[0].shape[0] not in warmed:
+            warmed.add(p[0].shape[0])
+            losses.append(trainer.train_prepared(p)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for p in timed:
+        losses.append(trainer.train_prepared(p)[0])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_steps = len(losses)
+
+    ev = {}
+    t0 = time.perf_counter()
+    val_paths = _split_paths(labelmap, n_val, rng)
+    val_emb = trainer.image_embeddings_for_rows(np.arange(n_val),
+                                                batch_size=eval_chunk)
+    ev["embed_val_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_val = trainer.classification_metrics(val_paths, val_emb)
+    ev["ranking_val_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    em_val = trainer.edge_metrics(val_paths, val_emb)
+    trainer.optimal_threshold = float(em_val.threshold)
+    ev["edge_val_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec = trainer.reconstruction()
+    ev["reconstruction_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    test_paths = _split_paths(labelmap, n_test, rng)
+    test_emb = trainer.image_embeddings_for_rows(
+        np.arange(n_val, n_val + n_test), batch_size=eval_chunk)
+    m_test = trainer.classification_metrics(test_paths, test_emb)
+    em_test = trainer.edge_metrics(test_paths, test_emb,
+                                   threshold=trainer.optimal_threshold)
+    ev["test_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = _read_counts()
+
+    losses = [float(l) for l in losses]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"joint step: non-finite losses {losses}")
+    for name in ("bn_stats", "bn_corr"):
+        if launches[name] != 53 * n_steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{n_steps} joint steps and the eval, "
+                                 f"expected {53 * n_steps}")
+    if launches["pairwise_order"] < 2:
+        raise AssertionError(f"pairwise_order launched "
+                             f"{launches['pairwise_order']} times in the "
+                             f"eval, expected at least 2")
+    for name, emb, n in (("val", val_emb, n_val), ("test", test_emb, n_test)):
+        if emb.shape != (n, EMB_DIM) or not np.isfinite(emb).all():
+            raise AssertionError(f"{name} embeddings: shape {emb.shape}, "
+                                 f"finite {np.isfinite(emb).all()}")
+    scalars = {"val " + k: v for k, v in m_val.items()
+               if isinstance(v, float)}
+    scalars.update({"test " + k: v for k, v in m_test.items()
+                    if isinstance(v, float)})
+    for tag, em in (("val edge", em_val), ("reconstruction", rec),
+                    ("test edge", em_test)):
+        scalars.update({f"{tag} {k}": float(v)
+                        for k, v in em._asdict().items()})
+    bad = {k: v for k, v in scalars.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"non-finite eval metrics {bad}")
+
+    # the eval's labels × val-images energies: kernel against plain
+    lab = trainer.label_embeddings()
+    img = torch.as_tensor(val_emb, device=DEV)
+    err = k3_compare("eval energies", k3.pairwise_order(lab, img),
+                     k3.pairwise_order_plain(lab, img))
+
+    result = {
+        "batch_edges": batch, "image_size": image_size,
+        "steps_timed": len(timed), "steps_total": n_steps,
+        "tower_rows_per_step": tower_rows,
+        "unique_tower_images_timed": n_imgs, "losses": losses,
+        "launches": launches,
+        "launches_per_step": {k: launches[k] / n_steps
+                              for k in ("bn_stats", "bn_corr")},
+        "ms_per_step": 1e3 * seconds / len(timed),
+        "unique_tower_images_per_s": n_imgs / seconds,
+        "host_prep_ms_per_batch": prep_ms,
+        "max_memory_allocated_gib": peak_gib,
+        "eval_seconds": ev, "eval_images": [n_val, n_test],
+        "eval_metrics": scalars, "eval_energy_max_abs_err": err,
+    }
+    log(f"[joint] resnet50@{image_size} order dim {EMB_DIM}, {batch} "
+        f"label→image edges a step, tower rows {tower_rows}: losses "
+        f"{[round(l, 4) for l in losses]}")
+    log(f"[joint] launches {launches} over {n_steps} steps and the eval "
+        f"(53 + 53 BN per step; pairwise_order in the eval)")
+    log(f"[joint] {result['ms_per_step']:.2f} ms/step, "
+        f"{result['unique_tower_images_per_s']:.1f} unique tower images/s, "
+        f"host prep {prep_ms:.1f} ms/batch, peak memory {peak_gib:.2f} GiB")
+    log(f"[joint] eval: " + ", ".join(f"{k} {v:.2f}" for k, v in ev.items())
+        + f"; val hit@1 {m_val['hit@1']:.4f}, val edge F1 "
+        f"{float(em_val.f1):.4f} at {float(em_val.threshold):.4g}, "
+        f"reconstruction F1 {float(rec.f1):.4f}, test edge F1 "
+        f"{float(em_test.f1):.4f}; eval energies kernel vs plain max err "
+        f"{err:.3g}")
+    return trainer, timed[-1], (val_paths, val_emb), result
+
+
+# --------------------------------------------------------------------------
+# the kernels line
+# --------------------------------------------------------------------------
+def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
+                eval_prof):
+    """One record per kernel. BN kernels: one classifier step's 53
+    launches at its shapes; pairwise_order: one joint eval's calls at its
+    shapes (in_eval_profiler_ms: its time inside the profiled val ranking
+    call). `launches` counts each kernel's launches in the run of the
+    path that drives it (the classifier path for the BN kernels, the
+    joint path for pairwise_order)."""
     kernels = []
     for name in ("bn_stats", "bn_corr"):
-        tot = {k: sum(r[name][k] * r["layers"] for r in rows)
+        tot = {k: sum(r[name][k] * r["layers"] for r in bn_rows)
                for k in ("ms", "eager_ms", "plain_ms", "library_ms",
                          "bound_ms")}
         kernels.append({
-            "name": name, "route": "triton", "source": KERNEL_SRC,
+            "name": name, "route": "triton", "source": KERNEL_SRC[name],
             "replaces": TPU_KERNELS[name],
             "launches": slice_result["launches"][name],
-            "max_abs_err": max(r[name]["max_abs_err"] for r in rows),
+            "max_abs_err": max(r[name]["max_abs_err"] for r in bn_rows),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": "bytes",
             "library_ms": tot["library_ms"], "eager_ms": tot["eager_ms"],
             "in_step_profiler_ms": (prof["kernels"][name]["ms"]
                                     if prof["kernels"][name] else None),
+            "launches_joint_path": joint_result["launches"][name],
         })
+    path = [r for r in k3_result["shapes"] if r["on_path"]]
+    tot = {k: sum(r[k] for r in path)
+           for k in ("ms", "eager_ms", "plain_ms", "bound_ms")}
+    by = {r["bound_by"] for r in path}
+    kernels.append({
+        "name": "pairwise_order", "route": "cuda",
+        "source": KERNEL_SRC["pairwise_order"],
+        "replaces": TPU_KERNELS["pairwise_order"],
+        "launches": joint_result["launches"]["pairwise_order"],
+        "max_abs_err": max([r["max_abs_err"] for r in k3_result["shapes"]]
+                           + [joint_result["eval_energy_max_abs_err"]]),
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": by.pop() if len(by) == 1 else "bytes",
+        "library_ms": None,
+        "library_note": "no PyTorch call computes the one-sided hinge "
+                        "sum (torch.cdist is a symmetric p-norm)",
+        "eager_ms": tot["eager_ms"],
+        "shapes": [[r["M"], r["N"], r["D"]] for r in path],
+        "in_eval_profiler_ms": (eval_prof["kernels"]["pairwise_order"]
+                                ["ms"] if eval_prof["kernels"]
+                                ["pairwise_order"] else None),
+    })
     return kernels
 
 
@@ -540,23 +1003,37 @@ def main(argv=None):
 
     t_start = time.perf_counter()
     smi = device_phase()
+    build = start_cuda_build()
     torch.backends.cudnn.benchmark = True
+    labelmap = ethec_labelmap()
 
     t = time.perf_counter()
-    rows = kernels_phase(args.batch)
+    bn_rows = kernels_phase(args.batch)
+    k3_result = k3_phase(build, labelmap.n_classes)
     bn_train_phase()
     small_step_phase(toy_labelmap(3, 3))
+    small_joint_phase()
     log(f"[kernels] phase took {time.perf_counter() - t:.1f} s "
         f"(kernel builds included)")
 
-    labelmap = ethec_labelmap()
     trainer, state, batch_t, result = slice_phase(labelmap, args.batch)
-    prof = profile_phase(trainer, state, batch_t)
-    kernels = per_step_kernel_line(rows, result, prof)
+    prof = profile_phase(
+        lambda: trainer.train_step(state, *batch_t), "measure")
+    del trainer, state, batch_t
+    torch.cuda.empty_cache()
+
+    jtrainer, jbatch, (val_paths, val_emb), joint = joint_phase(labelmap)
+    jprof = profile_phase(lambda: jtrainer.train_prepared(jbatch), "joint")
+    eprof = profile_phase(
+        lambda: jtrainer.classification_metrics(val_paths, val_emb), "eval")
+    kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof)
 
     details = {"nvidia_smi": smi, "torch": torch.__version__,
                "cuda": torch.version.cuda, "slice": result,
-               "profile": prof, "kernel_shapes": rows, "kernels": kernels,
+               "profile": prof, "joint": joint, "joint_profile": jprof,
+               "eval_profile": eprof,
+               "kernel_shapes": bn_rows, "pairwise_order": k3_result,
+               "kernels": kernels,
                "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -4,20 +4,29 @@
 The JAX package beside it is the reference: every module here keeps the
 path and names of its JAX counterpart and is tested against it on the CPU
 (``tests/test_torch_*.py``). Every Pallas kernel of the JAX package becomes
-a kernel written by hand for the card (``ops/bn_triton.py``); its plain
-PyTorch version runs only for tensors that lie on the CPU.
+a kernel written by hand for the card (``ops/bn_triton.py`` in Triton,
+``csrc/pairwise_order.cu`` in CUDA C++); its plain PyTorch version runs
+only for tensors that lie on the CPU.
 
 This package imports ``torch`` and numpy, never JAX or the JAX package,
-and imports ``triton`` only inside the CUDA path.
+and imports ``triton``, and builds its CUDA library with nvcc, only
+inside the CUDA path.
 
 Subpackages
 -----------
-hierarchy  taxonomy core: labelmaps (a copy of the JAX package's)
-ops        on-device image scaling, train-mode BatchNorm + its kernels
-models     ResNet family (torchvision names), hierarchical heads,
-           weight carry-over from the JAX package's trees
-losses     hierarchical classification losses
-train      classifier trainer
+hierarchy  taxonomy core: labelmaps and graphs (copies of the JAX
+           package's)
+ops        on-device image scaling, train-mode BatchNorm + its kernels,
+           the all-pairs order energy + its kernel
+csrc       CUDA C++ kernel sources (built with nvcc on first use)
+geometry   entailment energies, all-pairs energies
+models     ResNet family (torchvision names), hierarchical heads, the
+           joint trainer's label table and image tower, weight carry-over
+           from the JAX package's trees
+losses     classification losses, joint margin losses, joint sampler
+eval       threshold sweep, joint ranking metrics, reconstruction
+data       package data, host prefetch
+train      classifier trainer, --use_CNN joint trainer
 entry      flagship forward and taxonomy (twin of __graft_entry__)
 """
 

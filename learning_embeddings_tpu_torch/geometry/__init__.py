@@ -1,0 +1,34 @@
+from .energies import (
+    EUC_CONE_K,
+    HYP_CONE_K,
+    euc_cone_energy,
+    hyp_cone_energy,
+    inner_radius,
+    order_energy,
+)
+from .pairwise import (
+    pairwise_energy,
+    pairwise_euc_cone_energy,
+    pairwise_hyp_cone_energy,
+    pairwise_order_energy,
+)
+
+ENERGY_FNS = {
+    "order": order_energy,
+    "euc_cone": euc_cone_energy,
+    "hyp_cone": hyp_cone_energy,
+}
+
+__all__ = [
+    "EUC_CONE_K",
+    "HYP_CONE_K",
+    "ENERGY_FNS",
+    "euc_cone_energy",
+    "hyp_cone_energy",
+    "inner_radius",
+    "order_energy",
+    "pairwise_energy",
+    "pairwise_euc_cone_energy",
+    "pairwise_hyp_cone_energy",
+    "pairwise_order_energy",
+]

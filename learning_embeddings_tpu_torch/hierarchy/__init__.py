@@ -1,3 +1,4 @@
+from .graph import label_graph_from_paths, transitive_closure
 from .labelmap import (
     LabelMap,
     build_labelmap,
@@ -12,4 +13,6 @@ __all__ = [
     "butterfly200_labelmap",
     "labelmap_from_records",
     "toy_labelmap",
+    "label_graph_from_paths",
+    "transitive_closure",
 ]

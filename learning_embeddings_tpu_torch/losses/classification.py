@@ -33,18 +33,22 @@ def _ce_from_logits(logits, labels, class_weights=None):
     return nll
 
 
-def make_multi_level_ce(labelmap, level_weights=None, class_weights=None,
-                        device="cpu"):
+def make_multi_level_ce(labelmap, level_weights=None, class_weights=None):
     """Σ_l w_l · CE over each level's logit slice; batch mean. Class
-    weights are put on `device` once, here."""
+    weights move to the logits' device on the first call there."""
     slices = _level_slices(labelmap)
     lw = (np.ones(labelmap.n_levels) if level_weights is None
           else np.asarray(level_weights))
-    cw = (None if class_weights is None else
-          torch.as_tensor(np.asarray(class_weights, np.float32),
-                          device=device))
+    host_cw = (None if class_weights is None else
+               torch.as_tensor(np.asarray(class_weights, np.float32)))
+    on_device = {}   # device → the class weights there
 
     def loss_fn(logits, level_labels):
+        cw = None
+        if host_cw is not None:
+            cw = on_device.get(logits.device)
+            if cw is None:
+                cw = on_device[logits.device] = host_cw.to(logits.device)
         total = 0.0
         for l, (a, b) in enumerate(slices):
             w_l = None if cw is None else cw[a:b]

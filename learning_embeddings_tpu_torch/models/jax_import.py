@@ -2,7 +2,9 @@
 
 The port's own copy of the name and layout mapping of the JAX package's
 ``models/torch_import.py::export_torchvision_resnet`` (lines 94-123),
-extended to the whole ``HierarchicalCNN`` (trunk + multi_head fc):
+extended to a whole trunk + ``fc`` model: the ``HierarchicalCNN``
+classifier and the joint trainer's ``FeatCNN`` image tower, whose flax
+trees have the same {"trunk", "fc"} params and {"trunk"} batch_stats:
 
   conv kernel   HWIO → OIHW          fc kernel (in, out) → weight (out, in)
   BN scale/bias/mean/var → weight/bias/running_mean/running_var
@@ -19,14 +21,15 @@ from typing import Dict, Mapping, Sequence
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "label_table_from_jax"]
 
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                         stage_sizes: Sequence[int]) -> Dict[str, torch.Tensor]:
-    """State dict for the port's ``HierarchicalCNN`` from the JAX model's
-    ``params`` ({"trunk": ..., "fc": ...}) and ``batch_stats``
-    ({"trunk": ...}); loads with ``load_state_dict(strict=True)``."""
+    """State dict for the port's ``HierarchicalCNN`` or ``FeatCNN`` from
+    the JAX model's ``params`` ({"trunk": ..., "fc": ...}) and
+    ``batch_stats`` ({"trunk": ...}); loads with
+    ``load_state_dict(strict=True)``."""
     out: Dict[str, torch.Tensor] = {}
 
     def put(name, arr):
@@ -59,3 +62,10 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
     put("fc.weight", np.asarray(params["fc"]["kernel"]).T)
     put("fc.bias", params["fc"]["bias"])
     return out
+
+
+def label_table_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for the port's ``LabelEmbedder`` from a JAX
+    ``LabelEmbedder``'s variables ({"params": {"embedding": (n, d)}})."""
+    return {"embedding": torch.from_numpy(np.array(
+        variables["params"]["embedding"], dtype=np.float32))}

@@ -1,3 +1,5 @@
 from .classifier import ClassifierConfig, ClassifierTrainer, TrainState
+from .joint_cnn import JointCNNConfig, JointCNNTrainer
 
-__all__ = ["ClassifierConfig", "ClassifierTrainer", "TrainState"]
+__all__ = ["ClassifierConfig", "ClassifierTrainer", "TrainState",
+           "JointCNNConfig", "JointCNNTrainer"]

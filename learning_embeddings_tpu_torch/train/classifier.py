@@ -82,14 +82,14 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LRScheduler
 
 
-def make_criterion(labelmap: LabelMap, cfg: ClassifierConfig,
-                   device="cpu"):
+def make_criterion(labelmap: LabelMap, cfg: ClassifierConfig):
     """Returns loss_and_scores(raw, level_labels, multihot) -> (loss,
-    scores), `scores` being what the evaluator consumes."""
+    scores), `scores` being what the evaluator consumes. Class weights
+    follow the scores' device."""
     name = cfg.criterion
     if name == "multi_level_ce":
         f = make_multi_level_ce(labelmap, cfg.level_weights,
-                                cfg.class_weights, device=device)
+                                cfg.class_weights)
         return lambda raw, ll, mh: (f(raw, ll), raw)
     if name in CRITERIA:
         raise NotImplementedError(
@@ -111,7 +111,7 @@ class ClassifierTrainer:
         self.labelmap = labelmap
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        self.criterion = make_criterion(labelmap, cfg, self.device)
+        self.criterion = make_criterion(labelmap, cfg)
         model = HierarchicalCNN(backbone=cfg.backbone,
                                 levels=tuple(labelmap.levels),
                                 dtype=cfg.dtype)

@@ -25,7 +25,7 @@ from learning_embeddings_tpu_torch.losses import make_multi_level_ce
 from learning_embeddings_tpu_torch.models import state_dict_from_jax
 from learning_embeddings_tpu_torch.ops.image import device_scale
 from learning_embeddings_tpu_torch.train.classifier import (
-    ClassifierConfig, ClassifierTrainer)
+    ClassifierConfig, ClassifierTrainer, make_criterion)
 
 torch.set_num_threads(2)
 
@@ -56,6 +56,28 @@ def test_multi_level_ce_matches_jax(weighted):
     ref = jax_multi_level_ce(jlm, lw, cw)(jnp.asarray(logits),
                                           jnp.asarray(ll.astype(np.int32)))
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
+
+
+def test_class_weights_follow_the_logits_device():
+    """make_multi_level_ce and make_criterion put no class weight on a
+    fixed device: on the first call they move to the logits' (the meta
+    device stands in for a card here: a CPU weight indexed by meta labels
+    raises)."""
+    lm = toy_labelmap(3, 3)
+    cw = np.linspace(0.5, 1.5, lm.n_classes).astype(np.float32)
+    logits = torch.zeros((4, lm.n_classes), device="meta")
+    ll = torch.zeros((4, lm.n_levels), dtype=torch.int64, device="meta")
+    loss = make_multi_level_ce(lm, None, cw)(logits, ll)
+    assert loss.device.type == "meta" and loss.shape == ()
+    criterion = make_criterion(lm, ClassifierConfig(
+        criterion="multi_level_ce", class_weights=cw, device="cpu"))
+    loss, scores = criterion(logits, ll, None)
+    assert loss.device.type == "meta" and scores is logits
+    # and still on the CPU afterwards
+    cpu = make_multi_level_ce(lm, None, cw)
+    cpu(logits, ll)
+    assert np.isfinite(float(cpu(torch.zeros((4, lm.n_classes)),
+                                 torch.zeros((4, 3), dtype=torch.int64))))
 
 
 def test_device_scale_is_bit_identical():

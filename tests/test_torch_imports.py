@@ -1,5 +1,6 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package, and
-the port imports triton only inside functions (the CUDA path)."""
+"""The port and chip_smoke.py import neither JAX nor the JAX package, the
+port imports triton only inside functions (the CUDA path), and its CPU path
+never builds or loads the CUDA kernel library."""
 
 import ast
 import pathlib
@@ -28,7 +29,15 @@ def test_port_has_the_slice_modules():
                 "ops/bn.py", "ops/bn_triton.py", "models/resnet.py",
                 "models/heads.py", "models/jax_import.py",
                 "losses/classification.py", "train/classifier.py",
-                "entry.py", "data/butterfly200_taxonomy.json"]:
+                "entry.py", "data/butterfly200_taxonomy.json",
+                # slice 2
+                "hierarchy/graph.py", "geometry/energies.py",
+                "csrc/pairwise_order.cu", "ops/pairwise_order.py",
+                "geometry/pairwise.py", "models/embedder.py",
+                "losses/margin.py", "losses/joint_sampling.py",
+                "eval/threshold.py", "eval/metrics.py", "eval/ranking.py",
+                "eval/reconstruction.py", "data/pipeline.py",
+                "train/joint.py", "train/joint_cnn.py"]:
         assert (PORT / rel).is_file(), rel
     assert (ROOT / "chip_smoke.py").is_file()
 
@@ -52,3 +61,25 @@ def test_triton_only_imported_inside_functions(path):
         for name, imp in _imports(node):
             assert name.split(".")[0] != "triton", (
                 f"{path.name}:{imp.lineno} imports triton at import time")
+
+
+def test_cpu_path_never_builds_or_loads_the_cuda_library(monkeypatch):
+    """The order-energy wrapper on CPU tensors runs the plain version: no
+    nvcc, no ctypes load, no launch counted."""
+    import torch
+
+    from learning_embeddings_tpu_torch.geometry import pairwise_energy
+    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path tried to build or load the "
+                             "CUDA library")
+
+    monkeypatch.setattr(k3, "build_library", refuse)
+    monkeypatch.setattr(k3, "_library", refuse)
+    monkeypatch.setattr(k3.subprocess, "run", refuse)
+    before = k3.LAUNCHES
+    u = torch.randn(7, 10)
+    out = pairwise_energy("order", u, torch.randn(9, 10))
+    assert out.shape == (7, 9) and k3._LIB is None
+    assert k3.LAUNCHES == before
