@@ -19,10 +19,14 @@ and prints no result line):
               integer-valued bf16 inputs (the sums are exact in f32: no
               difference is allowed) and on normal bf16 inputs
               (|kernel − plain| ≤ 1e-5·Σ|terms| + 1e-6);
-            - pairwise_order (CUDA C++) at the three (M, N, D) shapes of
-              the joint eval and a few ragged ones, on integer-valued
-              inputs (exact) and normal f32 inputs (|kernel − plain| ≤
-              1e-5·Σ_d terms + 1e-6);
+            - pairwise_order (CUDA C++, two kernels chosen by D: exact_d
+              for 1 ≤ D ≤ 16, generic past it) at the three (M, N, D)
+              shapes of the joint eval, the same at ETHEC's 723 labels,
+              and ragged ones on both routes, on integer-valued inputs
+              (exact) and normal f32 inputs (|kernel − plain| ≤
+              1e-5·Σ_d terms + 1e-6); asserts the route each shape
+              launched, and times the exact_d and generic kernels in
+              turns at the six eval shapes;
             then batch_norm_train's forward and backward on the card
             against the CPU path, one small classifier train step and one
             small joint step with its eval on the card against the CPU.
@@ -44,9 +48,9 @@ and prints no result line):
             threshold), reconstruction, and the test metrics of a
             5049-image split at that threshold. Asserts finite losses,
             53 + 53 BN launches per step and at least 2 pairwise_order
-            launches, and holds the eval's energies from the kernel
-            against the plain version on the card. Then the profiler's
-            view of one joint step.
+            launches, all on the exact_d route, and holds the eval's
+            energies from the kernel against the plain version on the
+            card. Then the profiler's view of one joint step.
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last is {"ok": true, "device": {...}}. A `kernels` JSON line and the
@@ -88,9 +92,12 @@ TPU_KERNELS = {"bn_stats": "learning_embeddings_tpu/ops/bn_pallas.py:52",
 #: sizes of the ETHEC val and test splits: the joint eval's image counts
 VAL_IMAGES, TEST_IMAGES = 5286, 5049
 EMB_DIM = 10
-#: ragged (M, N, D) shapes for the pairwise_order check, beside the eval's
+#: ETHEC's label count: the joint eval's M where the ETHEC split is present
+ETHEC_LABELS = 723
+#: ragged (M, N, D) shapes for the pairwise_order check, beside the eval's:
+#: the exact_d route's D = 1, 3, 10 and 16, the generic route's 17 and 131
 K3_RAGGED = [(1, 1, 1), (37, 129, 10), (130, 7, 3), (5, 300, 131),
-             (65, 4097, 10)]
+             (65, 4097, 10), (33, 131, 16), (19, 130, 17)]
 
 
 def log(*a):
@@ -326,16 +333,29 @@ def k3_bound(M, N, D):
 
 
 def k3_build_report(build):
-    """Waits for the nvcc build; logs its time and ptxas' resource use."""
+    """Waits for the nvcc build; logs its time and ptxas' resource use of
+    each kernel instance (exact_d at each D, generic)."""
+    import re
+
     fut, t0 = build
     so, t1 = fut.result()
     seconds = t1 - t0
     with open(so[:-3] + ".log") as f:
-        report = [ln.strip() for ln in f if "ptxas info" in ln]
+        lines = [ln.strip() for ln in f]
+    report, name = {}, None
+    for ln in lines:
+        m = re.search(r"entry function '(\S+)'", ln)
+        if m:
+            d = re.search(r"exact_kernelILi(\d+)E", m.group(1))
+            name = f"exact_d D={d.group(1)}" if d else (
+                "generic" if "generic_kernel" in m.group(1) else m.group(1))
+        elif name and ("Used" in ln or "spill" in ln):
+            report[name] = (report.get(name, "") + " " + ln.replace(
+                "ptxas info    : ", "")).strip()
     log(f"[kernels] pairwise_order library {os.path.basename(so)} built "
         f"in {seconds:.1f} s (nvcc, beside the Triton builds)")
-    for ln in report:
-        log(f"[kernels]   {ln}")
+    for k, v in report.items():
+        log(f"[kernels]   ptxas {k}: {v}")
     return {"library": os.path.basename(so), "build_s": seconds,
             "ptxas": report}
 
@@ -353,22 +373,43 @@ def check_k3(M, N, D, gen, timed):
         return torch.randint(-3, 4, (n, D), device=DEV, generator=gen) \
             .float()
 
+    route = k3.route_for(D)
     ui, vi = ints(M), ints(N)
+    before = (k3.EXACT_D_LAUNCHES, k3.GENERIC_LAUNCHES)
     got, exact = k3.pairwise_order(ui, vi), k3.pairwise_order_plain(ui, vi)
+    ran = "exact_d" if k3.EXACT_D_LAUNCHES > before[0] else (
+        "generic" if k3.GENERIC_LAUNCHES > before[1] else None)
+    if ran != route:
+        raise AssertionError(f"pairwise_order {(M, N, D)} launched {ran}, "
+                             f"expected {route}")
     if not torch.equal(got, exact):
         raise AssertionError(f"pairwise_order {(M, N, D)}: integer inputs "
                              f"differ by {(got - exact).abs().max().item()}")
     u = torch.randn((M, D), device=DEV, generator=gen)
     v = torch.randn((N, D), device=DEV, generator=gen)
+    ref = k3.pairwise_order_plain(u, v)
     err = k3_compare(f"pairwise_order {(M, N, D)}", k3.pairwise_order(u, v),
-                     k3.pairwise_order_plain(u, v))
-    row = {"M": M, "N": N, "D": D, "max_abs_err": err}
+                     ref)
+    row = {"M": M, "N": N, "D": D, "route": route, "max_abs_err": err}
     if timed:
+        # the generic kernel on the same inputs: checked, then timed in
+        # turns with the exact_d one (exact, generic, generic, exact)
+        err_g = k3_compare(f"pairwise_order_generic {(M, N, D)}",
+                           k3.pairwise_order_generic(u, v), ref)
         copies = [(torch.randn((M, D), device=DEV, generator=gen),
                    torch.randn((N, D), device=DEV, generator=gen))
                   for _ in range(n_copies(4 * (M * D + N * D + M * N)))]
         bound, by = k3_bound(M, N, D)
-        row.update(ms=device_ms(k3.pairwise_order, copies),
+        turns = [device_ms(fn, copies) for fn in (
+            k3.pairwise_order, k3.pairwise_order_generic,
+            k3.pairwise_order_generic, k3.pairwise_order)]
+        plan = k3.device_plan(M, N, D, DEV)
+        row.update(plan={"tile": plan.tile, "tiles": plan.tiles_m
+                         * plan.tiles_n, "grid": plan.grid,
+                         "blocks_per_sm": k3.exact_blocks_per_sm(D, DEV)},
+                   ms=(turns[0] + turns[3]) / 2,
+                   generic_ms=(turns[1] + turns[2]) / 2, turns_ms=turns,
+                   generic_max_abs_err=err_g,
                    plain_ms=device_ms(k3.pairwise_order_plain, copies),
                    eager_ms=cuda_ms(k3.pairwise_order, copies),
                    bound_ms=bound, bound_by=by)
@@ -387,8 +428,15 @@ def k3_compare(what, got, ref):
     return diff.max().item() if diff.numel() else 0.0
 
 
+def eval_shapes(n_labels):
+    """The joint eval's three pairwise_order shapes at n_labels labels."""
+    return [(n_labels, VAL_IMAGES, EMB_DIM), (n_labels, n_labels, EMB_DIM),
+            (n_labels, TEST_IMAGES, EMB_DIM)]
+
+
 def k3_phase(build, n_labels):
-    """pairwise_order at the joint eval's shapes (timed) and ragged ones."""
+    """pairwise_order at the joint eval's shapes and ETHEC's (timed, both
+    routes) and ragged ones."""
     import torch
 
     from learning_embeddings_tpu_torch.ops import pairwise_order as k3
@@ -396,19 +444,22 @@ def k3_phase(build, n_labels):
     report = k3_build_report(build)
     gen = torch.Generator(device=DEV).manual_seed(3)
     rows = []
-    path = [(n_labels, VAL_IMAGES, EMB_DIM), (n_labels, n_labels, EMB_DIM),
-            (n_labels, TEST_IMAGES, EMB_DIM)]
-    for shape in path + K3_RAGGED:
-        row = check_k3(*shape, gen, timed=shape in path)
+    path = eval_shapes(n_labels)
+    timed = path + [s for s in eval_shapes(ETHEC_LABELS) if s not in path]
+    for shape in timed + K3_RAGGED:
+        row = check_k3(*shape, gen, timed=shape in timed)
         row["on_path"] = shape in path
         rows.append(row)
-        log(f"[kernels] pairwise_order {shape}: err "
+        log(f"[kernels] pairwise_order {shape} {row['route']}: err "
             f"{row['max_abs_err']:.3g}" + (
-                f", {row['ms'] * 1e3:.1f}us (eager "
+                f", {row['ms'] * 1e3:.2f}us (turns "
+                f"{[round(t * 1e3, 2) for t in row['turns_ms']]}; generic "
+                f"{row['generic_ms'] * 1e3:.2f}, eager "
                 f"{row['eager_ms'] * 1e3:.1f}, plain "
                 f"{row['plain_ms'] * 1e3:.1f}, bound "
-                f"{row['bound_ms'] * 1e3:.2f} by {row['bound_by']})"
-                if row["on_path"] else ""))
+                f"{row['bound_ms'] * 1e3:.2f} by {row['bound_by']}, "
+                f"{row['bound_ms'] / row['ms']:.0%} of it; plan "
+                f"{row['plan']})" if "ms" in row else ""))
     empty = k3.pairwise_order(torch.zeros((0, EMB_DIM), device=DEV),
                               torch.zeros((7, EMB_DIM), device=DEV))
     if empty.shape != (0, 7):
@@ -684,7 +735,7 @@ def slice_phase(labelmap, batch, steps=3, warmup=2):
 # profile of one step
 # --------------------------------------------------------------------------
 PROFILED = {"bn_stats": "bn_stats_kernel", "bn_corr": "bn_corr_kernel",
-            "pairwise_order": "pairwise_order_kernel"}
+            "pairwise_order": "pairwise_order_"}
 
 
 def profile_phase(step, tag):
@@ -753,7 +804,7 @@ def _reset_counts():
     from learning_embeddings_tpu_torch.ops import pairwise_order as k3
 
     bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
-    k3.LAUNCHES = 0
+    k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0
     bn.CHANNELS_LAST_COPIES = 0
 
 
@@ -763,7 +814,9 @@ def _read_counts():
 
     return {"bn_stats": bn_triton.STATS_LAUNCHES,
             "bn_corr": bn_triton.CORR_LAUNCHES,
-            "pairwise_order": k3.LAUNCHES}
+            "pairwise_order": k3.LAUNCHES,
+            "pairwise_order_exact_d": k3.EXACT_D_LAUNCHES,
+            "pairwise_order_generic": k3.GENERIC_LAUNCHES}
 
 
 def _split_paths(labelmap, n, rng):
@@ -878,10 +931,11 @@ def joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
             raise AssertionError(f"{name}: {launches[name]} launches in "
                                  f"{n_steps} joint steps and the eval, "
                                  f"expected {53 * n_steps}")
-    if launches["pairwise_order"] < 2:
-        raise AssertionError(f"pairwise_order launched "
-                             f"{launches['pairwise_order']} times in the "
-                             f"eval, expected at least 2")
+    if launches["pairwise_order"] < 2 or launches[
+            "pairwise_order_exact_d"] != launches["pairwise_order"]:
+        raise AssertionError(f"pairwise_order launched {launches} in the "
+                             f"eval, expected at least 2, all exact_d "
+                             f"(D = {EMB_DIM})")
     for name, emb, n in (("val", val_emb, n_val), ("test", test_emb, n_test)):
         if emb.shape != (n, EMB_DIM) or not np.isfinite(emb).all():
             raise AssertionError(f"{name} embeddings: shape {emb.shape}, "
@@ -943,10 +997,13 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                 eval_prof):
     """One record per kernel. BN kernels: one classifier step's 53
     launches at its shapes; pairwise_order: one joint eval's calls at its
-    shapes (in_eval_profiler_ms: its time inside the profiled val ranking
-    call). `launches` counts each kernel's launches in the run of the
-    path that drives it (the classifier path for the BN kernels, the
-    joint path for pairwise_order)."""
+    shapes through the route the wrapper takes (exact_d at D = 10), with
+    generic_ms the generic kernel on the same inputs, by_shape both at
+    every timed shape, and in_eval_profiler_ms its time inside the
+    profiled val ranking call. `launches` counts each kernel's launches
+    in the run of the path that drives it (the classifier path for the
+    BN kernels, the joint path for pairwise_order; launches_by_route
+    splits the latter by route)."""
     kernels = []
     for name in ("bn_stats", "bn_corr"):
         tot = {k: sum(r[name][k] * r["layers"] for r in bn_rows)
@@ -966,13 +1023,17 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
         })
     path = [r for r in k3_result["shapes"] if r["on_path"]]
     tot = {k: sum(r[k] for r in path)
-           for k in ("ms", "eager_ms", "plain_ms", "bound_ms")}
+           for k in ("ms", "generic_ms", "eager_ms", "plain_ms", "bound_ms")}
     by = {r["bound_by"] for r in path}
     kernels.append({
         "name": "pairwise_order", "route": "cuda",
         "source": KERNEL_SRC["pairwise_order"],
         "replaces": TPU_KERNELS["pairwise_order"],
         "launches": joint_result["launches"]["pairwise_order"],
+        "launches_by_route": {
+            r: joint_result["launches"]["pairwise_order_" + r]
+            for r in ("exact_d", "generic")},
+        "generic_ms": tot["generic_ms"],
         "max_abs_err": max([r["max_abs_err"] for r in k3_result["shapes"]]
                            + [joint_result["eval_energy_max_abs_err"]]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
@@ -983,6 +1044,9 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                         "sum (torch.cdist is a symmetric p-norm)",
         "eager_ms": tot["eager_ms"],
         "shapes": [[r["M"], r["N"], r["D"]] for r in path],
+        "by_shape": [{k: r[k] for k in ("M", "N", "D", "route", "ms",
+                                        "generic_ms", "bound_ms")}
+                     for r in k3_result["shapes"] if "ms" in r],
         "in_eval_profiler_ms": (eval_prof["kernels"]["pairwise_order"]
                                 ["ms"] if eval_prof["kernels"]
                                 ["pairwise_order"] else None),

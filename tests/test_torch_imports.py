@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package, the
+"""The port, chip_smoke.py and k3_variants.py import neither JAX nor the
+JAX package, the
 port imports triton only inside functions (the CUDA path), and its CPU path
 never builds or loads the CUDA kernel library."""
 
@@ -10,7 +11,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "learning_embeddings_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "learning_embeddings_tpu")
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                     ROOT / "k3_variants.py"]
 
 
 def _imports(tree):
