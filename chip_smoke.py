@@ -29,7 +29,9 @@ and prints no result line):
               turns at the six eval shapes;
             then batch_norm_train's forward and backward on the card
             against the CPU path, one small classifier train step and one
-            small joint step with its eval on the card against the CPU.
+            small joint step with its eval on the card against the CPU,
+            and one small hyperbolic-cone joint step for each label
+            optimizer (adam, rsgd, radam) on the card against the CPU.
 3. slice 1  the classifier path: ClassifierTrainer(resnet50,
             multi_level_ce, adam, lr 1e-5, 448², bn_impl='pallas', bf16
             trunk) on the taxonomy of entry.ethec_labelmap(), synthetic
@@ -51,6 +53,21 @@ and prints no result line):
             launches, all on the exact_d route, and holds the eval's
             energies from the kernel against the plain version on the
             card. Then the profiler's view of one joint step.
+5. slice 4  the hyperbolic joint path, BASELINE.json's workload
+            (bench.py:127-130): the phase-4 run with energy hyp_cone and
+            the hybrid Adam on the labels, on the same graph and pixel
+            bank, then the same eval. Asserts finite losses, 53 + 53 BN
+            launches per step, no pairwise_order launch (the cone energy
+            takes its Gram form), and every label row in the annulus
+            [r0, 1 − 1e−5]. Then the profiler's view of one step.
+6. slice 4  the label-only trainer: EmbeddingTrainer on the same taxonomy
+            with the CLI defaults (dim 10, batch 8, ratio 5, alpha 0.05,
+            lr 1e-3, 90% of the non-basic edges in train), three runs of a
+            few epochs (hyp_cone + adam, hyp_cone + rsgd, order + adam),
+            each with its val, test and reconstruction F1. The order run's
+            reconstruction must launch pairwise_order on the exact_d route,
+            and that launch is held against the plain version. Then the
+            profiler's view of one step of each run.
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last is {"ok": true, "device": {...}}. A `kernels` JSON line and the
@@ -604,7 +621,8 @@ def small_joint_phase(image_size=64):
         for dev in ("cpu", DEV):
             tr = JointCNNTrainer(lm, graph, edges, lambda r: bank[r % 24],
                                  JointCNNConfig(
-                                     backbone="resnet18", embedding_dim=4,
+                                     energy="order", backbone="resnet18",
+                                     embedding_dim=4,
                                      image_size=image_size, batch_size=8,
                                      neg_to_pos_ratio=4, alpha=0.5,
                                      lr_images=1e-5, tower_dtype="float32",
@@ -638,6 +656,111 @@ def small_joint_phase(image_size=64):
         f"energies, embeddings (rtol 1e-3, atol 1e-4), hit@1 "
         f"{card['hit@1']:.4f} and reconstruction F1 {card['rec_f1']:.4f} "
         f"agree")
+
+
+def _annulus_error(rows, r0):
+    """How far the row norms of `rows` lie outside [r0, 1 − 1e−5] (0 when
+    all lie inside)."""
+    import torch
+
+    n = torch.as_tensor(rows).float().norm(dim=-1)
+    return max(0.0, (r0 - n).max().item(), (n - (1 - 1e-5)).max().item())
+
+
+#: row norms are computed in f32 after the projection: allowed rounding
+ANNULUS_TOL = 1e-6
+
+
+def small_hyp_joint_phase(image_size=64):
+    """One f32 JointCNNTrainer step with the hyperbolic-cone energy
+    (ResNet-18, the hyp_cone_exp0 maps) for each label optimizer, on the
+    card and on the CPU from the same seed, then the labels × images
+    energies of 12 images. Same sizes and lr_images 1e-5 as
+    small_joint_phase (see there). Compared: the loss (rel 1e-4), the
+    label table (abs 1e-5), the step's energies (|Δ| ≤ 1e-4 + 1e-3·|E|,
+    as small_joint_phase's; abs 1e-5 failed at 1.4e-5 on an H100) and the
+    eval energies (|Δ| ≤ 1e-3 + 1e-3·|E|: near the inner radius the
+    cone's aperture asin(K(1 − ‖x‖²)/‖x‖) sits at its clamp, where its
+    gradient is ~229, so an embedding difference of 1e-6 moves an energy
+    by ~2e-4); every
+    label embedding, and the table where it is projected, within
+    [r0, 1 − 1e−5] up to 1e-6 of rounding."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.geometry import (inner_radius,
+                                                        pairwise_energy)
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.losses.joint_sampling import (
+        build_joint_graph)
+    from learning_embeddings_tpu_torch.train.joint_cnn import (
+        JointCNNConfig, JointCNNTrainer)
+
+    lm = toy_labelmap(2, 3)
+    rng = np.random.RandomState(0)
+    graph, edges = build_joint_graph(
+        lm, lm.leaf_paths()[rng.randint(0, lm.levels[-1], 24)])
+    bank = rng.randint(0, 256, (24, image_size, image_size, 3)) \
+        .astype(np.uint8)
+    batch = edges[edges[:, 1] >= graph.n_labels][::3][:8]
+    r0 = inner_radius(0.1)
+    out = {}
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False   # full f32 convs for this check
+    try:
+        for opt in ("adam", "rsgd", "radam"):
+            res = {}
+            for dev in ("cpu", DEV):
+                tr = JointCNNTrainer(lm, graph, edges, lambda r: bank[r % 24],
+                                     JointCNNConfig(
+                                         energy="hyp_cone",
+                                         optimizer_labels=opt,
+                                         backbone="resnet18",
+                                         embedding_dim=4,
+                                         image_size=image_size,
+                                         batch_size=8, neg_to_pos_ratio=4,
+                                         alpha=0.5, lr_images=1e-5,
+                                         tower_dtype="float32", device=dev))
+                loss, e_pos, e_neg = tr.train_batch(batch[:, 0], batch[:, 1])
+                emb = tr.image_embeddings_for_rows(np.arange(12),
+                                                   batch_size=5)
+                lab = tr.label_embeddings()
+                res[dev] = {
+                    "loss": loss, "e_pos": e_pos.cpu(), "e_neg": e_neg.cpu(),
+                    "table": tr.embedder.embedding.detach().cpu(),
+                    "labels": lab.cpu(),
+                    "energies": pairwise_energy(
+                        "hyp_cone", lab, torch.as_tensor(emb, device=lab
+                                                         .device),
+                        K=0.1).cpu()}
+            card, cpu = res[DEV], res["cpu"]
+            errs = {
+                "loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+                "e_pos": ((card["e_pos"] - cpu["e_pos"]).abs()
+                          - 1e-3 * cpu["e_pos"].abs()).max().item(),
+                "e_neg": ((card["e_neg"] - cpu["e_neg"]).abs()
+                          - 1e-3 * cpu["e_neg"].abs()).max().item(),
+                "table": (card["table"] - cpu["table"]).abs().max().item(),
+                "energies": ((card["energies"] - cpu["energies"]).abs()
+                             - 1e-3 * cpu["energies"].abs()).max().item(),
+                "annulus": max(_annulus_error(card["labels"], r0),
+                               _annulus_error(card["table"], r0)
+                               if opt != "rsgd" else 0.0)}
+            limits = {"loss": 1e-4, "e_pos": 1e-4, "e_neg": 1e-4,
+                      "table": 1e-5, "energies": 1e-3,
+                      "annulus": ANNULUS_TOL}
+            bad = {k: v for k, v in errs.items() if not v <= limits[k]}
+            if bad:
+                raise AssertionError(
+                    f"small hyperbolic joint step ({opt}): card and CPU "
+                    f"disagree on {bad} (limits {limits})")
+            out[opt] = errs
+            log(f"[kernels] resnet18 {image_size}² f32 hyp_cone joint step "
+                f"({opt}): loss card {card['loss']:.6f} CPU "
+                f"{cpu['loss']:.6f}; differences {errs} within {limits}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -753,11 +876,16 @@ def profile_phase(step, tag):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
 
-    per_name = {}
+    per_name, annotated_us = {}, 0.0
     for evt in prof.key_averages():
         if not str(evt.device_type).endswith("CUDA"):   # kernels only
             continue
         us = float(evt.self_device_time_total)
+        if getattr(evt, "is_user_annotation", False):
+            # a range such as Optimizer.step#Adam.step that spans kernels
+            # counted on their own: not device time of its own
+            annotated_us += us
+            continue
         if us > 0:
             per_name[evt.key] = (per_name.get(evt.key, (0.0, 0))[0] + us,
                                  evt.count)
@@ -770,6 +898,8 @@ def profile_phase(step, tag):
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
            "idle_share": (1 - busy / wall_us) if busy else None,
+           "device_entries": sum(n for _, n in per_name.values()),
+           "annotated_ms": annotated_us / 1e3,
            "kernels": kern,
            "top": [{"name": k[:80], "ms": v[0] / 1e3, "count": v[1]}
                    for k, v in top]}
@@ -779,7 +909,9 @@ def profile_phase(step, tag):
     else:
         log(f"[{tag}] profiled step: wall {out['wall_ms']:.2f} ms, device "
             f"busy {out['device_busy_ms']:.2f} ms (idle share "
-            f"{out['idle_share']:.3f}); " + ", ".join(
+            f"{out['idle_share']:.3f}) in {out['device_entries']} kernels "
+            f"and copies (annotated ranges left out: "
+            f"{out['annotated_ms']:.3f} ms); " + ", ".join(
                 f"{k} {v}" for k, v in kern.items() if v))
         for t in out["top"]:
             log(f"[{tag}]   {t['ms']:9.3f} ms x{t['count']:<4} {t['name']}")
@@ -831,9 +963,15 @@ def _split_paths(labelmap, n, rng):
 
 def joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
                 n_val=VAL_IMAGES, n_test=TEST_IMAGES, eval_chunk=128,
-                steps=5, warmup=2):
+                steps=5, warmup=2, energy="order", tag="joint"):
+    """The joint step at full width (bench.py:113-143 with `energy`; Adam
+    on the labels, under hyp_cone the hybrid) and the runner's eval. The
+    order energy's eval must launch pairwise_order (exact_d), the cone
+    energies' none."""
     import numpy as np
     import torch
+
+    from learning_embeddings_tpu_torch.geometry import inner_radius
 
     from learning_embeddings_tpu_torch.losses.joint_sampling import (
         build_joint_graph)
@@ -854,7 +992,7 @@ def joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
     def pixel_loader(rows):
         return bank[np.asarray(rows) % len(bank)]
 
-    cfg = JointCNNConfig(energy="order", backbone="resnet50",
+    cfg = JointCNNConfig(energy=energy, backbone="resnet50",
                          embedding_dim=EMB_DIM, image_size=image_size,
                          batch_size=batch, neg_to_pos_ratio=5, alpha=0.05,
                          pick_per_level=True, lr_labels=1e-2,
@@ -931,11 +1069,22 @@ def joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
             raise AssertionError(f"{name}: {launches[name]} launches in "
                                  f"{n_steps} joint steps and the eval, "
                                  f"expected {53 * n_steps}")
-    if launches["pairwise_order"] < 2 or launches[
-            "pairwise_order_exact_d"] != launches["pairwise_order"]:
+    if energy == "order" and (launches["pairwise_order"] < 2 or launches[
+            "pairwise_order_exact_d"] != launches["pairwise_order"]):
         raise AssertionError(f"pairwise_order launched {launches} in the "
                              f"eval, expected at least 2, all exact_d "
                              f"(D = {EMB_DIM})")
+    if energy != "order" and launches["pairwise_order"]:
+        raise AssertionError(f"pairwise_order launched {launches} with the "
+                             f"{energy} energy, expected none")
+    annulus = None
+    if energy == "hyp_cone":
+        r0 = inner_radius(trainer.K)
+        annulus = max(_annulus_error(trainer.label_embeddings(), r0),
+                      _annulus_error(trainer.embedder.embedding.detach(), r0))
+        if annulus > ANNULUS_TOL:
+            raise AssertionError(f"label rows lie {annulus} outside the "
+                                 f"annulus [{r0}, 1 - 1e-5]")
     for name, emb, n in (("val", val_emb, n_val), ("test", test_emb, n_test)):
         if emb.shape != (n, EMB_DIM) or not np.isfinite(emb).all():
             raise AssertionError(f"{name} embeddings: shape {emb.shape}, "
@@ -944,21 +1093,25 @@ def joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
                if isinstance(v, float)}
     scalars.update({"test " + k: v for k, v in m_test.items()
                     if isinstance(v, float)})
-    for tag, em in (("val edge", em_val), ("reconstruction", rec),
-                    ("test edge", em_test)):
-        scalars.update({f"{tag} {k}": float(v)
+    for what, em in (("val edge", em_val), ("reconstruction", rec),
+                     ("test edge", em_test)):
+        scalars.update({f"{what} {k}": float(v)
                         for k, v in em._asdict().items()})
     bad = {k: v for k, v in scalars.items() if not math.isfinite(v)}
     if bad:
         raise AssertionError(f"non-finite eval metrics {bad}")
 
-    # the eval's labels × val-images energies: kernel against plain
-    lab = trainer.label_embeddings()
-    img = torch.as_tensor(val_emb, device=DEV)
-    err = k3_compare("eval energies", k3.pairwise_order(lab, img),
-                     k3.pairwise_order_plain(lab, img))
+    err = None
+    if energy == "order":
+        # the eval's labels × val-images energies: kernel against plain
+        lab = trainer.label_embeddings()
+        img = torch.as_tensor(val_emb, device=DEV)
+        err = k3_compare("eval energies", k3.pairwise_order(lab, img),
+                         k3.pairwise_order_plain(lab, img))
 
     result = {
+        "energy": energy, "optimizer_labels": cfg.optimizer_labels,
+        "label_annulus_error": annulus,
         "batch_edges": batch, "image_size": image_size,
         "steps_timed": len(timed), "steps_total": n_steps,
         "tower_rows_per_step": tower_rows,
@@ -973,28 +1126,143 @@ def joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
         "eval_seconds": ev, "eval_images": [n_val, n_test],
         "eval_metrics": scalars, "eval_energy_max_abs_err": err,
     }
-    log(f"[joint] resnet50@{image_size} order dim {EMB_DIM}, {batch} "
+    log(f"[{tag}] resnet50@{image_size} {energy} dim {EMB_DIM}, {batch} "
         f"label→image edges a step, tower rows {tower_rows}: losses "
         f"{[round(l, 4) for l in losses]}")
-    log(f"[joint] launches {launches} over {n_steps} steps and the eval "
-        f"(53 + 53 BN per step; pairwise_order in the eval)")
-    log(f"[joint] {result['ms_per_step']:.2f} ms/step, "
+    log(f"[{tag}] launches {launches} over {n_steps} steps and the eval "
+        f"(53 + 53 BN per step; pairwise_order in the eval with the order "
+        f"energy only)" + ("" if annulus is None else
+                           f"; label rows outside the annulus by {annulus}"))
+    log(f"[{tag}] {result['ms_per_step']:.2f} ms/step, "
         f"{result['unique_tower_images_per_s']:.1f} unique tower images/s, "
         f"host prep {prep_ms:.1f} ms/batch, peak memory {peak_gib:.2f} GiB")
-    log(f"[joint] eval: " + ", ".join(f"{k} {v:.2f}" for k, v in ev.items())
+    log(f"[{tag}] eval: " + ", ".join(f"{k} {v:.2f}" for k, v in ev.items())
         + f"; val hit@1 {m_val['hit@1']:.4f}, val edge F1 "
         f"{float(em_val.f1):.4f} at {float(em_val.threshold):.4g}, "
         f"reconstruction F1 {float(rec.f1):.4f}, test edge F1 "
-        f"{float(em_test.f1):.4f}; eval energies kernel vs plain max err "
-        f"{err:.3g}")
+        f"{float(em_test.f1):.4f}" + ("" if err is None else
+                                      f"; eval energies kernel vs plain "
+                                      f"max err {err:.3g}"))
     return trainer, timed[-1], (val_paths, val_emb), result
+
+
+# --------------------------------------------------------------------------
+# phase 6: slice 4, the label-only trainer
+# --------------------------------------------------------------------------
+#: (energy, optimizer) of the label-only runs
+LABEL_ONLY_RUNS = (("hyp_cone", "adam"), ("hyp_cone", "rsgd"),
+                   ("order", "adam"))
+
+
+def label_only_phase(labelmap, epochs=5):
+    """EmbeddingTrainer on `labelmap`'s taxonomy (every leaf path, as the
+    CLI's butterfly200 taxonomy does) with the CLI defaults
+    (cli/order_embeddings_h.py, cli/common.py): dim 10, batch 8, ratio 5,
+    alpha 0.05, lr 1e-3, 90% of the non-basic edges in train, seed 0. Each
+    run is a path of its own: the counts are set to 0 before its epochs and
+    read after its eval (val, test at the val threshold, reconstruction).
+    Then the profiler's view of one step of the run."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.geometry import inner_radius
+    from learning_embeddings_tpu_torch.hierarchy import (
+        label_graph_from_paths, split_edges)
+    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+    from learning_embeddings_tpu_torch.train.embedding import (
+        EmbeddingTrainer, EmbeddingTrainerConfig)
+
+    splits = split_edges(label_graph_from_paths(labelmap.leaf_paths(),
+                                                labelmap),
+                         proportion_of_nb_edges_in_train=0.9, seed=0)
+    nl = labelmap.n_classes
+    results = {}
+    for energy, opt in LABEL_ONLY_RUNS:
+        name = f"{energy}_{opt}"
+        cfg = EmbeddingTrainerConfig(energy=energy, optimizer=opt,
+                                     embedding_dim=EMB_DIM, batch_size=8,
+                                     neg_to_pos_ratio=5, alpha=0.05, lr=1e-3,
+                                     seed=0, device=DEV)
+        _reset_counts()
+        trainer = EmbeddingTrainer(labelmap, splits, cfg)
+        epoch_s, stats = [], []
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            stats.append(trainer.train_epoch())   # waits on its losses
+            epoch_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        val = trainer.evaluate("val")
+        test = trainer.evaluate("test")
+        rec = trainer.reconstruction()
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = _read_counts()
+
+        steps = len(splits.train) // cfg.batch_size
+        f1 = {"val": float(val.f1), "test": float(test.f1),
+              "reconstruction": float(rec.f1)}
+        losses = [st["loss"] for st in stats]
+        if not all(map(math.isfinite, losses + list(f1.values()))):
+            raise AssertionError(f"label-only {name}: losses {losses}, "
+                                 f"F1 {f1}")
+        if launches["bn_stats"] or launches["bn_corr"]:
+            raise AssertionError(f"label-only {name} launched BN kernels: "
+                                 f"{launches}")
+        err = annulus = None
+        if energy == "order":
+            if launches["pairwise_order"] < 1 or launches[
+                    "pairwise_order_exact_d"] != launches["pairwise_order"]:
+                raise AssertionError(
+                    f"label-only {name}: pairwise_order launched "
+                    f"{launches}, expected the reconstruction's on exact_d")
+            emb = trainer.all_embeddings()[:nl]
+            err = k3_compare(f"label-only reconstruction energies {name}",
+                             k3.pairwise_order(emb, emb),
+                             k3.pairwise_order_plain(emb, emb))
+        else:
+            if launches["pairwise_order"]:
+                raise AssertionError(f"label-only {name}: pairwise_order "
+                                     f"launched {launches}, expected none")
+            annulus = _annulus_error(trainer.all_embeddings(),
+                                     inner_radius(trainer.K))
+            if annulus > ANNULUS_TOL:
+                raise AssertionError(f"label-only {name}: embeddings lie "
+                                     f"{annulus} outside the annulus")
+        steady = epoch_s[1:] or epoch_s
+        results[name] = {
+            "energy": energy, "optimizer": opt, "epochs": epochs,
+            "n_nodes": trainer.n_nodes, "train_edges": len(splits.train),
+            "val_edges": len(splits.val), "test_edges": len(splits.test),
+            "steps_per_epoch": steps, "epoch_s": epoch_s,
+            "ms_per_epoch": 1e3 * sum(steady) / len(steady),
+            "steps_per_s": steps * len(steady) / sum(steady),
+            "eval_s": eval_s, "losses": losses, "f1": f1,
+            "val_threshold": float(val.threshold),
+            "launches": launches, "reconstruction_max_abs_err": err,
+            "annulus_error": annulus}
+        log(f"[label] {name}: {trainer.n_nodes} nodes, "
+            f"{len(splits.train)} train edges ({steps} steps/epoch); epochs "
+            f"{[round(t, 3) for t in epoch_s]} s; "
+            f"{results[name]['ms_per_epoch']:.1f} ms/epoch, "
+            f"{results[name]['steps_per_s']:.0f} steps/s after the first; "
+            f"eval {eval_s:.3f} s; val F1 {f1['val']:.4f} at "
+            f"{float(val.threshold):.4g}, test F1 {f1['test']:.4f}, "
+            f"reconstruction F1 {f1['reconstruction']:.4f}; launches "
+            f"{launches}" + ("" if err is None else
+                             f"; reconstruction energies kernel vs plain "
+                             f"max err {err:.3g}"))
+        edges = torch.as_tensor(splits.train[:8], device=DEV).long()
+        results[name]["profile"] = profile_phase(
+            lambda: trainer.train_batch(edges[:, 0], edges[:, 1]),
+            f"label {name}")
+    return results
 
 
 # --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
-                eval_prof):
+                eval_prof, hyp_result, label_results):
     """One record per kernel. BN kernels: one classifier step's 53
     launches at its shapes; pairwise_order: one joint eval's calls at its
     shapes through the route the wrapper takes (exact_d at D = 10), with
@@ -1003,7 +1271,17 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
     profiled val ranking call. `launches` counts each kernel's launches
     in the run of the path that drives it (the classifier path for the
     BN kernels, the joint path for pairwise_order; launches_by_route
-    splits the latter by route)."""
+    splits the latter by route); launches_by_path gives every kernel's
+    count on every path, each counted from 0 over that path's run."""
+    paths = {"classifier": slice_result["launches"],
+             "joint_order": joint_result["launches"],
+             "joint_hyp_cone": hyp_result["launches"]}
+    paths.update({"label_only_" + k: v["launches"]
+                  for k, v in label_results.items()})
+
+    def by_path(name):
+        return {p: c.get(name, 0) for p, c in paths.items()}
+
     kernels = []
     for name in ("bn_stats", "bn_corr"):
         tot = {k: sum(r[name][k] * r["layers"] for r in bn_rows)
@@ -1020,6 +1298,7 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
             "in_step_profiler_ms": (prof["kernels"][name]["ms"]
                                     if prof["kernels"][name] else None),
             "launches_joint_path": joint_result["launches"][name],
+            "launches_by_path": by_path(name),
         })
     path = [r for r in k3_result["shapes"] if r["on_path"]]
     tot = {k: sum(r[k] for r in path)
@@ -1033,9 +1312,14 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
         "launches_by_route": {
             r: joint_result["launches"]["pairwise_order_" + r]
             for r in ("exact_d", "generic")},
+        "launches_by_path": by_path("pairwise_order"),
         "generic_ms": tot["generic_ms"],
         "max_abs_err": max([r["max_abs_err"] for r in k3_result["shapes"]]
-                           + [joint_result["eval_energy_max_abs_err"]]),
+                           + [joint_result["eval_energy_max_abs_err"]]
+                           + [v["reconstruction_max_abs_err"]
+                              for v in label_results.values()
+                              if v["reconstruction_max_abs_err"]
+                              is not None]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": by.pop() if len(by) == 1 else "bytes",
@@ -1077,6 +1361,7 @@ def main(argv=None):
     bn_train_phase()
     small_step_phase(toy_labelmap(3, 3))
     small_joint_phase()
+    small_hyp = small_hyp_joint_phase()
     log(f"[kernels] phase took {time.perf_counter() - t:.1f} s "
         f"(kernel builds included)")
 
@@ -1090,12 +1375,26 @@ def main(argv=None):
     jprof = profile_phase(lambda: jtrainer.train_prepared(jbatch), "joint")
     eprof = profile_phase(
         lambda: jtrainer.classification_metrics(val_paths, val_emb), "eval")
-    kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof)
+    del jtrainer, jbatch
+    torch.cuda.empty_cache()
+
+    htrainer, hbatch, _, hyp = joint_phase(labelmap, energy="hyp_cone",
+                                           tag="hypjoint")
+    hprof = profile_phase(lambda: htrainer.train_prepared(hbatch),
+                          "hypjoint")
+    del htrainer, hbatch
+    torch.cuda.empty_cache()
+
+    label = label_only_phase(labelmap)
+    kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof,
+                          hyp, label)
 
     details = {"nvidia_smi": smi, "torch": torch.__version__,
                "cuda": torch.version.cuda, "slice": result,
                "profile": prof, "joint": joint, "joint_profile": jprof,
-               "eval_profile": eprof,
+               "eval_profile": eprof, "small_hyp_joint": small_hyp,
+               "hyp_joint": hyp, "hyp_joint_profile": hprof,
+               "label_only": label,
                "kernel_shapes": bn_rows, "pairwise_order": k3_result,
                "kernels": kernels,
                "seconds": time.perf_counter() - t_start}

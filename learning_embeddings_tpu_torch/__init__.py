@@ -14,19 +14,22 @@ inside the CUDA path.
 
 Subpackages
 -----------
-hierarchy  taxonomy core: labelmaps and graphs (copies of the JAX
-           package's)
+hierarchy  taxonomy core: labelmaps, graphs and edge splits (copies of
+           the JAX package's)
 ops        on-device image scaling, train-mode BatchNorm + its kernels,
            the all-pairs order energy + its kernel
 csrc       CUDA C++ kernel sources (built with nvcc on first use)
-geometry   entailment energies, all-pairs energies
+geometry   entailment energies, all-pairs energies, Poincaré-ball maps
+optim      Riemannian optimizers on the Poincaré ball (torch.optim)
 models     ResNet family (torchvision names), hierarchical heads, the
            joint trainer's label table and image tower, weight carry-over
            from the JAX package's trees
-losses     classification losses, joint margin losses, joint sampler
+losses     classification losses, margin losses, the joint (host) and
+           label-only (device) negative samplers
 eval       threshold sweep, joint ranking metrics, reconstruction
 data       package data, host prefetch
-train      classifier trainer, --use_CNN joint trainer
+train      classifier trainer, --use_CNN joint trainer, label-only
+           embedding trainer
 entry      flagship forward and taxonomy (twin of __graft_entry__)
 """
 

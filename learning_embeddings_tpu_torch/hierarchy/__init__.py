@@ -1,4 +1,11 @@
-from .graph import label_graph_from_paths, transitive_closure
+from .graph import (
+    EdgeSplits,
+    edges_from_adjacency,
+    label_graph_from_paths,
+    negative_adjacency,
+    split_edges,
+    transitive_closure,
+)
 from .labelmap import (
     LabelMap,
     build_labelmap,
@@ -13,6 +20,10 @@ __all__ = [
     "butterfly200_labelmap",
     "labelmap_from_records",
     "toy_labelmap",
+    "EdgeSplits",
+    "edges_from_adjacency",
     "label_graph_from_paths",
+    "negative_adjacency",
+    "split_edges",
     "transitive_closure",
 ]

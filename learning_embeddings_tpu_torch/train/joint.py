@@ -9,13 +9,13 @@ not ported yet (ROADMAP.md queue A item 15); the ``--use_CNN`` trainer is
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..eval import best_threshold_metrics, threshold_metrics
-from ..geometry import ENERGY_FNS
+from ..geometry import ENERGY_FNS, inner_radius
 from ..losses.joint_sampling import JointGraph, sample_joint_negatives_np
 
 __all__ = ["JOINT_MODE", "DEFAULT_K", "DEFAULT_CURRICULUM",
@@ -57,13 +57,23 @@ def curriculum_levels_for_epoch(curriculum: Dict[int, Tuple[int, ...]],
     return current
 
 
-def load_label_table(params, table: np.ndarray) -> None:
+def load_label_table(params, table: np.ndarray, energy: str,
+                     K: Optional[float]) -> None:
     """Warm-start a label-embedding table from an external one, in place:
     `table` must match the shape of exactly one tensor of `params` (an
-    iterable of parameters), else this raises. The hyperbolic energy's
-    rescale into the Poincaré annulus comes with its port (ROADMAP.md queue
-    A item 11)."""
-    table = torch.as_tensor(np.asarray(table, np.float32))
+    iterable of parameters), else this raises. Under ``hyp_cone`` a table
+    not already in the Poincaré annulus [r0, 1) (a 2-D cosine embedding,
+    say) is first rescaled into it: row norms map linearly onto
+    r0 + (1 − 2·r0)·‖x‖ / max‖x‖."""
+    table = np.asarray(table, np.float32)
+    if energy == "hyp_cone":
+        r0 = inner_radius(K)
+        norms = np.linalg.norm(table, axis=1, keepdims=True)
+        if norms.max() >= 1.0 or norms.min() < r0:
+            norms = np.maximum(norms, 1e-12)
+            target = r0 + (1 - 2 * r0) * norms / norms.max()
+            table = table / norms * target
+    table = torch.as_tensor(table)
     hits = [p for p in params if tuple(p.shape) == tuple(table.shape)]
     if len(hits) != 1:
         raise ValueError(

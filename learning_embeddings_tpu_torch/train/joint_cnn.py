@@ -14,18 +14,26 @@ jointly with the label table. One step is:
    rows take part in its statistics; its reductions are the kernels of
    ``ops/bn_triton.py`` on the card), and each endpoint picks an image
    embedding by slot or a label embedding by id; the loss (``variant_loss``
-   in f32) and one ``torch.optim.Adam`` step over two parameter groups,
-   labels at ``lr_labels`` and the image tower at ``lr_images``
-   (``train_prepared``).
+   in f32) and the optimizer step (``train_prepared``). The image tower
+   takes a ``torch.optim.Adam`` step at ``lr_images``; the labels, by
+   ``optimizer_labels``:
+   - ``adam``: a group of the same Adam at ``lr_labels``; under
+     ``hyp_cone`` this is the reference's hybrid: the label gradients are
+     rescaled by (1/λ)² before the step and the table is projected into
+     the Poincaré annulus after it;
+   - ``rsgd`` (``hyp_cone`` only): ``RiemannianSGD``, no projection;
+   - ``radam`` (``hyp_cone`` only): ``RiemannianAdam``, then the
+     projection.
 
 The eval (``classification_metrics``, ``edge_metrics``, ``reconstruction``)
 takes its all-pairs energies from ``geometry/pairwise.py``: with the order
-energy, the kernel of ``ops/pairwise_order.py`` on the card.
+energy, the kernel of ``ops/pairwise_order.py`` on the card; the cone
+energies through their Gram form.
 
-Ported: the ``order`` and ``euc_cone`` energies with Adam on the labels.
-Not yet (ROADMAP.md): ``hyp_cone`` with ``rsgd``/``radam`` (queue A items
-11-12), meshes (item 21), ``remat`` and ``bn_stats_dtype`` other than
-float32 (item 18), ``load_tower_trunk`` (item 9).
+Ported: the ``order``, ``euc_cone`` and ``hyp_cone`` energies with every
+label optimizer. Not yet (ROADMAP.md): meshes (queue A item 21),
+``remat`` and ``bn_stats_dtype`` other than float32 (item 18),
+``load_tower_trunk`` (item 9).
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ from ..losses.margin import variant_loss
 from ..models.embedder import FeatCNN, LabelEmbedder
 from ..models.resnet import init_params_
 from ..ops.image import device_scale
+from ..optim import (RiemannianAdam, RiemannianSGD, project_annulus_,
+                     scale_by_conformal_factor_)
 from .classifier import resolve_device
 from .joint import (DEFAULT_CURRICULUM, DEFAULT_K, JOINT_MODE,
                     curriculum_levels_for_epoch, epoch_edge_order,
@@ -54,7 +64,7 @@ __all__ = ["JointCNNConfig", "JointCNNTrainer"]
 
 @dataclasses.dataclass
 class JointCNNConfig:
-    energy: str = "order"          # order | euc_cone (hyp_cone: not yet)
+    energy: str = "hyp_cone"            # order | euc_cone | hyp_cone
     backbone: str = "resnet50"
     embedding_dim: int = 10
     image_size: int = 448
@@ -137,12 +147,24 @@ class JointCNNTrainer:
             self.featcnn.trunk.requires_grad_(False)
         image_params = [p for p in self.featcnn.parameters()
                         if p.requires_grad]
+        groups = [{"params": image_params, "lr": cfg.lr_images}]
+        label_params = list(self.embedder.parameters())
+        self.label_optimizer = None
+        if cfg.optimizer_labels == "adam":
+            groups.insert(0, {"params": label_params, "lr": cfg.lr_labels})
+        else:
+            ball = (RiemannianSGD if cfg.optimizer_labels == "rsgd"
+                    else RiemannianAdam)
+            self.label_optimizer = ball(label_params, lr=cfg.lr_labels,
+                                        K=self.K)
         # optax.adam: b1 0.9, b2 0.999, eps 1e-8 outside the square root
-        self.optimizer = torch.optim.Adam(
-            [{"params": list(self.embedder.parameters()),
-              "lr": cfg.lr_labels},
-             {"params": image_params, "lr": cfg.lr_images}],
-            betas=(0.9, 0.999), eps=1e-8)
+        self.optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999),
+                                          eps=1e-8)
+        self._optimizers = [o for o in (self.optimizer, self.label_optimizer)
+                            if o is not None]
+        hyp = cfg.energy == "hyp_cone"
+        self._conformal = hyp and cfg.optimizer_labels == "adam"
+        self._project = hyp and cfg.optimizer_labels != "rsgd"
         self._energy_kw = {} if self.K is None else {"K": self.K}
         self._rng = np.random.RandomState(cfg.seed)
         self.optimal_threshold = None
@@ -154,27 +176,37 @@ class JointCNNTrainer:
 
     # ------------------------------------------------------------------
     def load_embedding_table(self, table: np.ndarray) -> None:
-        """Warm-start the label table (--load_emb_from)."""
-        load_label_table(self.embedder.parameters(), table)
+        """Warm-start the label table (--load_emb_from); under hyp_cone a
+        table outside the annulus is rescaled into it first."""
+        load_label_table(self.embedder.parameters(), table, self.cfg.energy,
+                         self.K)
 
     def levels_for_epoch(self, epoch: int) -> Tuple[int, ...]:
         return curriculum_levels_for_epoch(self.curriculum, epoch)
 
     def checkpoint_payload(self) -> Dict:
-        return {"params": {"labels": _detached(self.embedder.state_dict()),
-                           "images": _detached(dict(
-                               self.featcnn.named_parameters()))},
-                "batch_stats": _detached(dict(self.featcnn.named_buffers())),
-                "opt_state": self.optimizer.state_dict(),
-                "optimal_threshold": (
-                    float("nan") if self.optimal_threshold is None
-                    else float(self.optimal_threshold))}
+        """params, batch_stats, opt_state (the Adam's; with rsgd or radam
+        also label_opt_state) and optimal_threshold, NaN for none."""
+        payload = {
+            "params": {"labels": _detached(self.embedder.state_dict()),
+                       "images": _detached(dict(
+                           self.featcnn.named_parameters()))},
+            "batch_stats": _detached(dict(self.featcnn.named_buffers())),
+            "opt_state": self.optimizer.state_dict(),
+            "optimal_threshold": (
+                float("nan") if self.optimal_threshold is None
+                else float(self.optimal_threshold))}
+        if self.label_optimizer is not None:
+            payload["label_opt_state"] = self.label_optimizer.state_dict()
+        return payload
 
     def restore_payload(self, payload: Dict) -> None:
         self.embedder.load_state_dict(payload["params"]["labels"])
         self.featcnn.load_state_dict({**payload["params"]["images"],
                                       **payload["batch_stats"]}, strict=True)
         self.optimizer.load_state_dict(payload["opt_state"])
+        if self.label_optimizer is not None:
+            self.label_optimizer.load_state_dict(payload["label_opt_state"])
         thr = float(payload["optimal_threshold"])
         self.optimal_threshold = None if np.isnan(thr) else thr
 
@@ -240,9 +272,15 @@ class JointCNNTrainer:
         """Device side of one step. Returns (loss, e_pos, e_neg) as device
         tensors: the caller decides when to wait for them."""
         loss, (e_pos, e_neg) = self._loss(*prepared)
-        self.optimizer.zero_grad(set_to_none=True)
+        for opt in self._optimizers:
+            opt.zero_grad(set_to_none=True)
         loss.backward()
-        self.optimizer.step()
+        if self._conformal:
+            scale_by_conformal_factor_(self.embedder.parameters())
+        for opt in self._optimizers:
+            opt.step()
+        if self._project:
+            project_annulus_(self.embedder.parameters(), self.K)
         return loss.detach(), e_pos.detach(), e_neg.detach()
 
     def train_batch(self, pos_from: np.ndarray, pos_to: np.ndarray):

@@ -6,6 +6,7 @@ it runs on a machine with torch alone:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -78,3 +79,89 @@ def test_bn_kernels_match_plain(gen, R, C):
                       (bn_triton.bn_corr(*ints), bn._corr_plain(*ints))):
         for g, w in zip(got, want):
             assert torch.equal(g, w)   # integer sums are exact in f32
+
+
+def test_hyperbolic_joint_step_on_the_card(gen):
+    """One f32 ResNet-18 joint step with the hyperbolic-cone energy and the
+    hybrid Adam on the labels, on the card against the CPU from the same
+    seed: the loss (rel 1e-4) and the label table (abs 1e-5), one launch
+    of each BN kernel per BN layer (ResNet-18 has 20) on the card and none
+    on the CPU, and the label embeddings in the annulus."""
+    import numpy as np
+
+    from learning_embeddings_tpu_torch.geometry import inner_radius
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.losses.joint_sampling import (
+        build_joint_graph)
+    from learning_embeddings_tpu_torch.train.joint_cnn import (
+        JointCNNConfig, JointCNNTrainer)
+
+    lm = toy_labelmap(2, 3)
+    rng = np.random.RandomState(0)
+    graph, edges = build_joint_graph(
+        lm, lm.leaf_paths()[rng.randint(0, lm.levels[-1], 24)])
+    bank = rng.randint(0, 256, (24, 32, 32, 3)).astype(np.uint8)
+    batch = edges[edges[:, 1] >= graph.n_labels][::3][:8]
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tr = JointCNNTrainer(lm, graph, edges, lambda r: bank[r % 24],
+                                 JointCNNConfig(
+                                     energy="hyp_cone", backbone="resnet18",
+                                     embedding_dim=4, image_size=32,
+                                     batch_size=8, neg_to_pos_ratio=4,
+                                     alpha=0.5, lr_images=1e-5,
+                                     tower_dtype="float32", device=dev))
+            before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES)
+            loss, _, _ = tr.train_batch(batch[:, 0], batch[:, 1])
+            torch.cuda.synchronize()
+            out[dev] = (loss, tr.embedder.embedding.detach().cpu(),
+                        tr.label_embeddings().cpu(),
+                        (bn_triton.STATS_LAUNCHES - before[0],
+                         bn_triton.CORR_LAUNCHES - before[1]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    (lc, tc, ec, nc), (lp, tp, _, np_) = out["cuda"], out["cpu"]
+    assert nc == (20, 20) and np_ == (0, 0)
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    assert (tc - tp).abs().max().item() <= 1e-5
+    norms = ec.norm(dim=1)
+    assert bool((norms >= inner_radius(0.1) - 1e-6).all())
+    assert bool((norms <= 1 - 1e-5 + 1e-6).all())
+
+
+def test_label_only_epoch_on_the_card(gen):
+    """One epoch of the label-only trainer on the card for each energy the
+    smoke run trains; the order run's reconstruction launches the exact_d
+    kernel once and its energies match the plain version."""
+    from learning_embeddings_tpu_torch.hierarchy import (
+        label_graph_from_paths, split_edges, toy_labelmap)
+    from learning_embeddings_tpu_torch.train.embedding import (
+        EmbeddingTrainer, EmbeddingTrainerConfig)
+
+    lm = toy_labelmap(3, 3)
+    splits = split_edges(label_graph_from_paths(lm.leaf_paths(), lm),
+                         proportion_of_nb_edges_in_train=0.5, val_frac=0.15,
+                         test_frac=0.15)
+    for energy, opt in (("hyp_cone", "adam"), ("hyp_cone", "rsgd"),
+                        ("order", "adam")):
+        tr = EmbeddingTrainer(lm, splits, EmbeddingTrainerConfig(
+            energy=energy, optimizer=opt, embedding_dim=10, batch_size=8,
+            alpha=0.05, lr=1e-3))
+        stats = tr.train_epoch()
+        assert all(map(np.isfinite, stats.values())), (energy, opt, stats)
+        tr.evaluate("val")
+        tr.evaluate("test")
+        before = (k3.LAUNCHES, k3.EXACT_D_LAUNCHES)
+        rec = tr.reconstruction()
+        torch.cuda.synchronize()
+        launched = (k3.LAUNCHES - before[0], k3.EXACT_D_LAUNCHES - before[1])
+        assert launched == ((1, 1) if energy == "order" else (0, 0))
+        assert np.isfinite(float(rec.f1))
+        if energy == "order":
+            emb = tr.all_embeddings()[:lm.n_classes]
+            got, ref = k3.pairwise_order(emb, emb), \
+                k3.pairwise_order_plain(emb, emb)
+            assert bool(((got - ref).abs() <= 1e-5 * ref + 1e-6).all())

@@ -39,7 +39,10 @@ def test_port_has_the_slice_modules():
                 "losses/margin.py", "losses/joint_sampling.py",
                 "eval/threshold.py", "eval/metrics.py", "eval/ranking.py",
                 "eval/reconstruction.py", "data/pipeline.py",
-                "train/joint.py", "train/joint_cnn.py"]:
+                "train/joint.py", "train/joint_cnn.py",
+                # slice 4
+                "geometry/poincare.py", "optim/__init__.py",
+                "optim/rsgd.py", "train/embedding.py"]:
         assert (PORT / rel).is_file(), rel
     assert (ROOT / "chip_smoke.py").is_file()
 
@@ -85,3 +88,4 @@ def test_cpu_path_never_builds_or_loads_the_cuda_library(monkeypatch):
     out = pairwise_energy("order", u, torch.randn(9, 10))
     assert out.shape == (7, 9) and k3._LIB is None
     assert k3.LAUNCHES == before
+

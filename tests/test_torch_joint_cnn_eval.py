@@ -50,7 +50,8 @@ def test_prefetch_gives_the_same_epoch(setup):  # noqa: F811
     for prefetch in (True, False):
         tr = JointCNNTrainer(setup["lm"], setup["graph"], img_edges,
                              setup["loader"], JointCNNConfig(
-                                 backbone="resnet18", embedding_dim=4,
+                                 energy="order", backbone="resnet18",
+                                 embedding_dim=4,
                                  image_size=32, batch_size=8,
                                  tower_dtype="float32", prefetch=prefetch,
                                  device="cpu"))
@@ -119,8 +120,9 @@ def test_eval_sequence_matches_jax(setup, trained):  # noqa: F811
 
 
 def _port(setup, **kw):  # noqa: F811
-    cfg = dict(backbone="resnet18", embedding_dim=4, image_size=32,
-               batch_size=8, tower_dtype="float32", device="cpu")
+    cfg = dict(energy="order", backbone="resnet18", embedding_dim=4,
+               image_size=32, batch_size=8, tower_dtype="float32",
+               device="cpu")
     cfg.update(kw)
     return JointCNNTrainer(setup["lm"], setup["graph"], setup["edges"],
                            setup["loader"], JointCNNConfig(**cfg))
@@ -162,7 +164,7 @@ def test_curriculum_stages(setup):  # noqa: F811
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(energy="hyp_cone"), NotImplementedError, "ROADMAP"),
+    (dict(backbone="vgg11"), NotImplementedError, "ROADMAP"),
     (dict(energy="order", optimizer_labels="rsgd"), ValueError,
      "hyperbolic-cone"),
     (dict(energy="euc_cone", optimizer_labels="radam"), ValueError,
@@ -179,7 +181,8 @@ def test_unported_or_invalid_options_raise(setup, kw, err, match):  # noqa
 def test_mesh_and_missing_card_raise(setup):  # noqa: F811
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         JointCNNTrainer(setup["lm"], setup["graph"], setup["edges"],
-                        setup["loader"], JointCNNConfig(device="cpu"),
+                        setup["loader"], JointCNNConfig(energy="order",
+                                                        device="cpu"),
                         mesh=object())
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
