@@ -68,6 +68,24 @@ and prints no result line):
             reconstruction must launch pairwise_order on the exact_d route,
             and that launch is held against the plain version. Then the
             profiler's view of one step of each run.
+7. slice 5  the label-only CLIs through their main(argv) with the CLI
+            defaults on Butterfly200: order_embeddings_h (adam hybrid) 5
+            epochs then --resume to 7 (starts at 5, best_model kept),
+            order_embeddings --loss order_emb_loss 5 epochs with
+            --check_reconstr_every 1 (K3 once per reconstruction, exact_d),
+            embed_toy (4 levels, branching 3, hyp_cones_loss) and
+            validate_embedding on the order run (K3, the run's
+            reconstruction F1). Experiments go to .smoke_experiments/,
+            removed at the end.
+8. slice 5  run_joint_cnn at the BASELINE width (hyp_cone, ResNet-50@448,
+            bf16 tower, 16 edges a step, ratio 5) on 256 train images and
+            256-image val and test splits of the pixel bank, warm-started
+            from phase 7's hyperbolic best_model (table and threshold), 2
+            epochs then resume=True to 3, then 1 epoch with the order
+            energy (its eval launches K3 on exact_d); 53 + 53 BN launches
+            a step; each split's eval, one checkpoint's save, load and size.
+9. slice 5  cli/oe_h.py --use_CNN end to end on 120 Butterfly200 records
+            with PNG images the script writes (decoded by cv2).
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last is {"ok": true, "device": {...}}. A `kernels` JSON line and the
@@ -79,6 +97,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1259,10 +1278,385 @@ def label_only_phase(labelmap, epochs=5):
 
 
 # --------------------------------------------------------------------------
+# phases 7-9: slice 5, the runner and the CLIs
+# --------------------------------------------------------------------------
+#: experiment directories of the slice-5 phases, removed at the end
+EXPERIMENTS = os.path.join(HERE, ".smoke_experiments")
+
+
+def _jsonl(exp_root):
+    with open(os.path.join(exp_root, "logs", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _steps(exp_root, tag):
+    return [r["step"] for r in _jsonl(exp_root) if r["tag"] == tag]
+
+
+def _run_path(name, fn, paths):
+    """fn() as a path of its own: the counts set to 0 just before, read
+    just after (into paths[name]); returns (fn(), seconds)."""
+    import torch
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    paths[name] = _read_counts()
+    return out, seconds
+
+
+def _k3_on_exact_d(name, launches, at_least):
+    if launches["pairwise_order"] < at_least or launches[
+            "pairwise_order_exact_d"] != launches["pairwise_order"]:
+        raise AssertionError(f"{name}: pairwise_order launched {launches}, "
+                             f"expected at least {at_least}, all exact_d")
+
+
+def label_cli_phase(epochs=5, resume_to=7, toy_epochs=5):
+    """The label-only CLIs through their main(argv), with the CLI defaults
+    (dim 10, batch 8, ratio 5, lr 1e-3, --taxonomy butterfly200, --set_mode
+    train) on the card, each a path of its own:
+    - order_embeddings_h (the adam hybrid) for `epochs`, then --resume to
+      `resume_to`: the second run starts at `epochs`, and its best_model
+      holds the best val F1 of all epochs;
+    - order_embeddings --loss order_emb_loss for `epochs` with
+      --check_reconstr_every 1: K3 once per reconstruction (one an epoch
+      and the final one), all on exact_d;
+    - embed_toy --tree_levels 4 --tree_branching 3 --loss hyp_cones_loss;
+    - validate_embedding on the order run: K3 on exact_d, and the run's
+      final reconstruction F1 (within 1e-6)."""
+    from learning_embeddings_tpu_torch.cli import (embed_toy,
+                                                   order_embeddings,
+                                                   order_embeddings_h,
+                                                   validate_embedding)
+
+    base = ["--taxonomy", "butterfly200", "--set_mode", "train",
+            "--experiment_dir", EXPERIMENTS, "--device", DEV]
+    paths, out = {}, {}
+
+    hyp = os.path.join(EXPERIMENTS, "cli_hyp")
+    first, s1 = _run_path("cli_order_embeddings_h", lambda: order_embeddings_h
+                          .main(base + ["--experiment_name", "cli_hyp",
+                                        "--n_epochs", str(epochs)]), paths)
+    second, s2 = _run_path("cli_order_embeddings_h_resume",
+                           lambda: order_embeddings_h.main(
+                               base + ["--experiment_name", "cli_hyp",
+                                       "--n_epochs", str(resume_to),
+                                       "--resume"]), paths)
+    steps = _steps(hyp, "train/loss")
+    if steps != list(range(resume_to)):
+        raise AssertionError(f"order_embeddings_h --resume: train epochs "
+                             f"{steps}, expected 0..{resume_to - 1} once each")
+    val = {r["step"]: r["value"] for r in _jsonl(hyp) if r["tag"] == "val/f1"}
+    best_epoch = max(sorted(val), key=lambda e: val[e])
+    if second["best_epoch"] != best_epoch or abs(
+            second["best_val_f1"] - val[best_epoch]) > 1e-7:
+        raise AssertionError(f"best_model after --resume: epoch "
+                             f"{second['best_epoch']} F1 "
+                             f"{second['best_val_f1']}, val F1 by epoch {val}")
+    out["order_embeddings_h"] = {
+        "epochs": [epochs, resume_to], "seconds": [s1, s2],
+        "best_epoch": second["best_epoch"],
+        "best_val_f1": second["best_val_f1"],
+        "best_epoch_before_resume": first["best_epoch"],
+        "test_f1": second.get("test_f1"),
+        "reconstruction_f1": second["reconstruction_f1"],
+        "epoch_s": [r["value"] for r in _jsonl(hyp)
+                    if r["tag"] == "epoch_time"]}
+    for p in ("cli_order_embeddings_h", "cli_order_embeddings_h_resume"):
+        if paths[p]["pairwise_order"] or paths[p]["bn_stats"]:
+            raise AssertionError(f"{p} launched {paths[p]}, expected none")
+
+    order = os.path.join(EXPERIMENTS, "cli_order")
+    res, s = _run_path("cli_order_embeddings", lambda: order_embeddings.main(
+        base + ["--experiment_name", "cli_order", "--loss",
+                "order_emb_loss", "--n_epochs", str(epochs),
+                "--check_reconstr_every", "1"]), paths)
+    _k3_on_exact_d("order_embeddings", paths["cli_order_embeddings"],
+                   epochs + 1)
+    out["order_embeddings"] = {
+        "epochs": epochs, "seconds": s, "best_epoch": res["best_epoch"],
+        "best_val_f1": res["best_val_f1"], "test_f1": res.get("test_f1"),
+        "reconstruction_f1": res["reconstruction_f1"],
+        "reconstruction_f1_by_epoch": [
+            r["value"] for r in _jsonl(order)
+            if r["tag"] == "reconstruction/f1"]}
+
+    res, s = _run_path("cli_embed_toy", lambda: embed_toy.main(
+        ["--tree_levels", "4", "--tree_branching", "3", "--loss",
+         "hyp_cones_loss", "--n_epochs", str(toy_epochs), "--experiment_dir",
+         EXPERIMENTS, "--experiment_name", "cli_toy", "--device", DEV]),
+        paths)
+    out["embed_toy"] = {"epochs": toy_epochs, "seconds": s,
+                        "n_nodes": res["trainer"].n_nodes,
+                        "reconstruction_f1": res["reconstruction_f1"]}
+
+    val_res, s = _run_path("cli_validate_embedding",
+                           lambda: validate_embedding.main(
+                               ["--experiment_path", order, "--device", DEV]),
+                           paths)
+    _k3_on_exact_d("validate_embedding", paths["cli_validate_embedding"], 1)
+    diff = abs(val_res["reconstruction_f1"]
+               - out["order_embeddings"]["reconstruction_f1"])
+    if diff > 1e-6:
+        raise AssertionError(f"validate_embedding: reconstruction F1 "
+                             f"{val_res['reconstruction_f1']}, the run's "
+                             f"{out['order_embeddings']['reconstruction_f1']}")
+    out["validate_embedding"] = dict(val_res, seconds=s)
+    for name, r in out.items():
+        log(f"[cli] {name}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items() if not isinstance(v, list))
+            + f"; launches {paths.get('cli_' + name)}")
+    return out, paths, os.path.join(hyp, "weights", "best_model")
+
+
+def joint_runner_phase(warm_path, image_size=448, backbone="resnet50",
+                       n_train=256, n_val=256, n_test=256, epochs=2,
+                       resume_to=3, order_epochs=1):
+    """run_joint_cnn at the BASELINE width (bench.py:113-143: hyp_cone,
+    ResNet-50@448, bf16 tower, 16 label→image edges a step, ratio 5) on
+    Butterfly200 (the label-only runs' taxonomy) with `n_train` synthetic
+    train images of the seeded pixel bank and held-out val and test splits
+    of `n_val`/`n_test`: warm-started from the hyperbolic label-only run's
+    best_model (--load_emb_from's loader: its table and threshold),
+    `epochs` epochs, then resume=True to `resume_to`; then `order_epochs`
+    with the order energy, whose eval launches K3 (exact_d). Each run is a
+    path of its own; every train step launches 53 + 53 BN kernels."""
+    import argparse as _ap
+
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.cli._joint_main import load_warm_start
+    from learning_embeddings_tpu_torch.hierarchy import butterfly200_labelmap
+    from learning_embeddings_tpu_torch.losses.joint_sampling import (
+        build_joint_graph)
+    from learning_embeddings_tpu_torch.train.experiment import (
+        Checkpointer, ExperimentDir)
+    from learning_embeddings_tpu_torch.train.joint_cnn import JointCNNConfig
+    from learning_embeddings_tpu_torch.train.runner import run_joint_cnn
+
+    labelmap = butterfly200_labelmap()
+    nl = labelmap.n_classes
+    rng = np.random.RandomState(0)
+    graph, train_edges = build_joint_graph(
+        labelmap, labelmap.leaf_paths()[rng.randint(0, labelmap.levels[-1],
+                                                    n_train)])
+    img_edges = train_edges[train_edges[:, 1] >= nl]
+    bank = rng.randint(0, 256, (64, image_size, image_size, 3),
+                       dtype=np.uint8)
+    calls = {"train": 0}
+
+    def train_loader(rows):
+        calls["train"] += 1
+        return bank[np.asarray(rows) % len(bank)]
+
+    def eval_loader(offset):
+        return lambda rows: bank[(np.asarray(rows) + offset) % len(bank)]
+
+    eval_sets = {"val": (_split_paths(labelmap, n_val, rng), eval_loader(7)),
+                 "test": (_split_paths(labelmap, n_test, rng),
+                          eval_loader(29))}
+    table, thr = load_warm_start(_ap.Namespace(load_emb_from=warm_path,
+                                               load_cosine_emb=None), nl)
+    if table is None or table.shape != (nl, EMB_DIM) or thr is None \
+            or not math.isfinite(thr):
+        raise AssertionError(f"warm start from {warm_path}: table "
+                             f"{None if table is None else table.shape}, "
+                             f"threshold {thr}")
+
+    def cfg(energy):
+        return JointCNNConfig(energy=energy, backbone=backbone,
+                              embedding_dim=EMB_DIM, image_size=image_size,
+                              batch_size=16, neg_to_pos_ratio=5, alpha=0.05,
+                              pick_per_level=True, lr_labels=1e-2,
+                              lr_images=1e-3, tower_dtype="bfloat16", seed=0,
+                              device=DEV)
+
+    steps_per_epoch = len(img_edges) // 16
+    paths, runs = {}, {}
+    for name, energy, kw in (
+            ("joint_runner_hyp_cone", "hyp_cone",
+             dict(n_epochs=epochs, init_embeddings=table,
+                  init_threshold=thr)),
+            ("joint_runner_hyp_cone_resume", "hyp_cone",
+             dict(n_epochs=resume_to, resume=True)),
+            ("joint_runner_order", "order", dict(n_epochs=order_epochs))):
+        exp_name = "order" if energy == "order" else "hyp"
+        calls["train"] = 0
+        torch.cuda.reset_peak_memory_stats()
+        res, seconds = _run_path(name, lambda: run_joint_cnn(
+            labelmap, graph, img_edges, train_loader, cfg(energy),
+            experiment_dir=os.path.join(EXPERIMENTS, "joint"),
+            experiment_name=exp_name, eval_sets=eval_sets,
+            manifest_args={"phase": name}, **kw), paths)
+        launches = paths[name]
+        n_steps = calls["train"]
+        if n_steps != (kw["n_epochs"] - (epochs if kw.get("resume") else 0)) \
+                * steps_per_epoch:
+            raise AssertionError(f"{name}: {n_steps} train steps, expected "
+                                 f"{steps_per_epoch} an epoch")
+        for k in ("bn_stats", "bn_corr"):
+            if launches[k] != 53 * n_steps:
+                raise AssertionError(f"{name}: {k} launched {launches[k]} "
+                                     f"times in {n_steps} steps, expected "
+                                     f"53 a step")
+        if energy == "order":
+            _k3_on_exact_d(name, launches, 2)
+        elif launches["pairwise_order"]:
+            raise AssertionError(f"{name}: pairwise_order launched "
+                                 f"{launches}, expected none")
+        root = os.path.join(EXPERIMENTS, "joint", exp_name)
+        metrics = _jsonl(root)
+        bad = [r for r in metrics if not math.isfinite(r["value"])]
+        finals = [res["reconstruction_f1"]] + list(
+            res["test_metrics"].values())
+        if bad or not all(map(math.isfinite, finals)):
+            raise AssertionError(f"{name}: non-finite metrics {bad} "
+                                 f"{res['test_metrics']}")
+        tr = res["trainer"]
+        runs[name] = {
+            "energy": energy, "seconds": seconds, "train_steps": n_steps,
+            "launches_per_step": {k: launches[k] / max(n_steps, 1)
+                                  for k in ("bn_stats", "bn_corr")},
+            "epoch_s": [r["value"] for r in metrics
+                        if r["tag"] == "epoch_time"],
+            "train_epochs": _steps(root, "train/loss"),
+            "best_epoch": res["best_epoch"],
+            "best_val_micro_f1": res["best_val_micro_f1"],
+            "test_metrics": res["test_metrics"],
+            "reconstruction_f1": res["reconstruction_f1"],
+            "threshold": tr.optimal_threshold,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30}
+
+    hyp = runs["joint_runner_hyp_cone_resume"]
+    if hyp["train_epochs"] != list(range(resume_to)):
+        raise AssertionError(f"resume: train epochs {hyp['train_epochs']}, "
+                             f"expected 0..{resume_to - 1} once each")
+    if hyp["best_val_micro_f1"] < runs["joint_runner_hyp_cone"][
+            "best_val_micro_f1"]:
+        raise AssertionError("resume lost the best val micro-F1")
+
+    # the eval of each split, timed on the order run's best model as the
+    # runner runs it (after the paths' counts were read), and one
+    # checkpoint's save, load and size
+    timing = {}
+    for split, (paths_g, loader) in eval_sets.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs = tr.image_embeddings_for_rows(np.arange(len(paths_g)),
+                                            loader=loader, batch_size=16)
+        tr.classification_metrics(paths_g, embs)
+        tr.edge_metrics(paths_g, embs, threshold=(
+            tr.optimal_threshold if split == "test" else None))
+        torch.cuda.synchronize()
+        timing[f"eval_{split}_s"] = time.perf_counter() - t0
+    ckpt = Checkpointer(ExperimentDir(os.path.join(EXPERIMENTS, "joint"),
+                                      "order"))
+    payload = tr.checkpoint_payload()
+    t0 = time.perf_counter()
+    ckpt.save("timed", payload)
+    timing["checkpoint_save_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tr.restore_payload(ckpt.load("timed", payload))
+    torch.cuda.synchronize()
+    timing["checkpoint_load_ms"] = 1e3 * (time.perf_counter() - t0)
+    timing["checkpoint_bytes"] = os.path.getsize(
+        os.path.join(ckpt.dir, "timed"))
+    result = {"runs": runs, "timing": timing, "n_train": n_train,
+              "n_val": n_val, "n_test": n_test, "image_size": image_size,
+              "backbone": backbone, "steps_per_epoch": steps_per_epoch,
+              "warm_start_threshold": thr}
+    for name, r in runs.items():
+        log(f"[runner] {name}: {r['train_steps']} steps in {r['seconds']:.1f}"
+            f" s (epochs {[round(t, 2) for t in r['epoch_s']]} s), best "
+            f"epoch {r['best_epoch']} val micro-F1 "
+            f"{r['best_val_micro_f1']:.4f}, test " + ", ".join(
+                f"{k} {r['test_metrics'][k]:.4f}"
+                for k in ("micro_f1", "hit@1", "edge_f1")) +
+            f", reconstruction F1 {r['reconstruction_f1']:.4f}, peak "
+            f"{r['max_memory_allocated_gib']:.2f} GiB; launches "
+            f"{paths[name]}")
+    log(f"[runner] {timing}")
+    return result, paths
+
+
+def oe_h_cli_phase(n_leaves=40, per_leaf=3, image_hw=(375, 500)):
+    """cli/oe_h.py --use_CNN end to end on a small synthetic split:
+    Butterfly200 records (`per_leaf` specimens of each of `n_leaves`
+    leaves, split by stratified_split) and PNG images the script writes,
+    decoded by cv2 on the card's machine; the CLI defaults otherwise
+    (resnet18 at 448², batch 8), one epoch."""
+    import numpy as np
+
+    from learning_embeddings_tpu_torch import data
+    from learning_embeddings_tpu_torch.cli import oe_h
+    from learning_embeddings_tpu_torch.data.pipeline import _cv2
+    from learning_embeddings_tpu_torch.hierarchy import (
+        butterfly200_labelmap, labelmap_from_records)
+
+    cv2 = _cv2()
+    if cv2 is None:
+        raise AssertionError("cv2 does not import on this machine")
+    b200 = butterfly200_labelmap()
+    root = os.path.join(EXPERIMENTS, "oe_h_data")
+    rng = np.random.RandomState(0)
+    records = []
+    for leaf in range(n_leaves):
+        path = b200.leaf_paths()[leaf * (b200.levels[-1] // n_leaves)]
+        names = [b200.ix_to_name[l][path[l]] for l in range(4)]
+        epithet = names[3].split(".", 1)[-1][len(names[2]) + 1:]
+        for k in range(per_leaf):
+            i = len(records)
+            records.append({"token": f"s{i:05d}", "family": names[0],
+                            "subfamily": names[1], "genus": names[2],
+                            "specific_epithet": epithet,
+                            "image_path": names[2],
+                            "image_name": f"s{i:05d}.png"})
+            d = os.path.join(root, "images", names[2])
+            os.makedirs(d, exist_ok=True)
+            cv2.imwrite(os.path.join(d, f"s{i:05d}.png"), rng.randint(
+                0, 256, (*image_hw, 3)).astype(np.uint8))
+    splits = data.stratified_split(records,
+                                   labelmap_from_records(records))
+    os.makedirs(os.path.join(root, "splits"), exist_ok=True)
+    for name, rs in zip(("train", "val", "test"), splits):
+        data.save_ethec_json(rs, os.path.join(root, "splits",
+                                              f"{name}.json"))
+    paths = {}
+    res, seconds = _run_path("cli_oe_h_use_cnn", lambda: oe_h.main(
+        ["--use_CNN", "--data_dir", os.path.join(root, "splits"),
+         "--image_dir", os.path.join(root, "images"), "--set_mode", "train",
+         "--n_epochs", "1", "--experiment_dir", EXPERIMENTS,
+         "--experiment_name", "cli_oe_h", "--device", DEV]), paths)
+    launches = paths["cli_oe_h_use_cnn"]
+    # ResNet-18 has 20 BN layers: 20 + 20 launches a train step
+    if not launches["bn_stats"] or launches["bn_stats"] % 20 or \
+            launches["bn_corr"] != launches["bn_stats"]:
+        raise AssertionError(f"oe_h --use_CNN launched {launches}")
+    finals = [res["reconstruction_f1"]] + list(res["test_metrics"].values())
+    if not all(map(math.isfinite, finals)):
+        raise AssertionError(f"oe_h --use_CNN: {res['test_metrics']}")
+    out = {"seconds": seconds, "decoder": f"cv2 {cv2.__version__}",
+           "split_sizes": [len(s) for s in splits],
+           "train_steps": launches["bn_stats"] // 20,
+           "test_metrics": res["test_metrics"],
+           "reconstruction_f1": res["reconstruction_f1"]}
+    log(f"[oe_h] --use_CNN on {out['split_sizes']} PNG images "
+        f"({out['decoder']}): {seconds:.1f} s, {out['train_steps']} steps, "
+        f"test micro-F1 {res['test_metrics']['micro_f1']:.4f}, edge F1 "
+        f"{res['test_metrics']['edge_f1']:.4f}; launches {launches}")
+    return out, paths
+
+
+# --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
-                eval_prof, hyp_result, label_results):
+                eval_prof, hyp_result, label_results, slice5_paths):
     """One record per kernel. BN kernels: one classifier step's 53
     launches at its shapes; pairwise_order: one joint eval's calls at its
     shapes through the route the wrapper takes (exact_d at D = 10), with
@@ -1272,12 +1666,15 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
     in the run of the path that drives it (the classifier path for the
     BN kernels, the joint path for pairwise_order; launches_by_route
     splits the latter by route); launches_by_path gives every kernel's
-    count on every path, each counted from 0 over that path's run."""
+    count on every path, each counted from 0 over that path's run (the
+    slice-5 CLIs and runner runs among them, with pairwise_order's
+    exact_d count beside its total)."""
     paths = {"classifier": slice_result["launches"],
              "joint_order": joint_result["launches"],
              "joint_hyp_cone": hyp_result["launches"]}
     paths.update({"label_only_" + k: v["launches"]
                   for k, v in label_results.items()})
+    paths.update(slice5_paths)
 
     def by_path(name):
         return {p: c.get(name, 0) for p, c in paths.items()}
@@ -1313,6 +1710,7 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
             r: joint_result["launches"]["pairwise_order_" + r]
             for r in ("exact_d", "generic")},
         "launches_by_path": by_path("pairwise_order"),
+        "exact_d_launches_by_path": by_path("pairwise_order_exact_d"),
         "generic_ms": tot["generic_ms"],
         "max_abs_err": max([r["max_abs_err"] for r in k3_result["shapes"]]
                            + [joint_result["eval_energy_max_abs_err"]]
@@ -1386,15 +1784,28 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     label = label_only_phase(labelmap)
+
+    shutil.rmtree(EXPERIMENTS, ignore_errors=True)
+    try:
+        cli, slice5_paths, warm = label_cli_phase()
+        runner, runner_paths = joint_runner_phase(warm)
+        slice5_paths.update(runner_paths)
+        torch.cuda.empty_cache()
+        oe_h_cli, oe_h_paths = oe_h_cli_phase()
+        slice5_paths.update(oe_h_paths)
+    finally:
+        shutil.rmtree(EXPERIMENTS, ignore_errors=True)
     kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof,
-                          hyp, label)
+                          hyp, label, slice5_paths)
 
     details = {"nvidia_smi": smi, "torch": torch.__version__,
                "cuda": torch.version.cuda, "slice": result,
                "profile": prof, "joint": joint, "joint_profile": jprof,
                "eval_profile": eprof, "small_hyp_joint": small_hyp,
                "hyp_joint": hyp, "hyp_joint_profile": hprof,
-               "label_only": label,
+               "label_only": label, "label_cli": cli,
+               "joint_runner": runner, "oe_h_cli": oe_h_cli,
+               "slice5_launches": slice5_paths,
                "kernel_shapes": bn_rows, "pairwise_order": k3_result,
                "kernels": kernels,
                "seconds": time.perf_counter() - t_start}

@@ -1,8 +1,10 @@
 from .embedder import FeatCNN, LabelEmbedder, geometry_map, hyperbolic_init
 from .heads import HEADS, HierarchicalCNN
-from .jax_import import label_table_from_jax, state_dict_from_jax
+from .jax_import import (label_table_from_jax, label_table_from_jax_checkpoint,
+                         state_dict_from_jax)
 from .resnet import BACKBONES, ResNet, init_params_
 
 __all__ = ["HEADS", "HierarchicalCNN", "state_dict_from_jax",
-           "label_table_from_jax", "BACKBONES", "ResNet", "init_params_",
+           "label_table_from_jax", "label_table_from_jax_checkpoint",
+           "BACKBONES", "ResNet", "init_params_",
            "FeatCNN", "LabelEmbedder", "geometry_map", "hyperbolic_init"]

@@ -16,12 +16,13 @@ variables); nothing here imports JAX.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "label_table_from_jax"]
+__all__ = ["state_dict_from_jax", "label_table_from_jax",
+           "label_table_from_jax_checkpoint"]
 
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
@@ -69,3 +70,17 @@ def label_table_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     ``LabelEmbedder``'s variables ({"params": {"embedding": (n, d)}})."""
     return {"embedding": torch.from_numpy(np.array(
         variables["params"]["embedding"], dtype=np.float32))}
+
+
+def label_table_from_jax_checkpoint(
+        tree: Mapping) -> Tuple[Dict[str, torch.Tensor], Optional[float]]:
+    """(``LabelEmbedder`` state dict, calibrated threshold or None) from the
+    numpy tree of a JAX label-only or joint checkpoint, as the JAX
+    ``Checkpointer.load_raw`` returns it. A label-only payload holds the
+    table at params/params/embedding, a joint one at
+    params/labels/params/embedding; ``optimal_threshold`` is NaN where none
+    was calibrated."""
+    params = tree["params"]
+    variables = params["labels"] if "labels" in params else params
+    thr = float(tree.get("optimal_threshold", float("nan")))
+    return label_table_from_jax(variables), (None if np.isnan(thr) else thr)

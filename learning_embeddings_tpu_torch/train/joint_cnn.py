@@ -31,9 +31,9 @@ energy, the kernel of ``ops/pairwise_order.py`` on the card; the cone
 energies through their Gram form.
 
 Ported: the ``order``, ``euc_cone`` and ``hyp_cone`` energies with every
-label optimizer. Not yet (ROADMAP.md): meshes (queue A item 21),
-``remat`` and ``bn_stats_dtype`` other than float32 (item 18),
-``load_tower_trunk`` (item 9).
+label optimizer, and the warm start of the tower's trunk from a classifier
+checkpoint (``load_tower_trunk``). Not yet (ROADMAP.md): meshes (queue A
+item 21), ``remat`` and ``bn_stats_dtype`` other than float32 (item 18).
 """
 
 from __future__ import annotations
@@ -180,6 +180,25 @@ class JointCNNTrainer:
         table outside the annulus is rescaled into it first."""
         load_label_table(self.embedder.parameters(), table, self.cfg.energy,
                          self.K)
+
+    def load_tower_trunk(self, trunk_params, trunk_stats) -> None:
+        """Warm-start the image tower's trunk from a finetuned classifier:
+        `trunk_params` and `trunk_stats` map the names of the classifier
+        trunk's parameters and buffers, relative to the trunk (a
+        classifier payload's ``trunk.*`` entries without the prefix), to
+        tensors. The projection head ``fc`` stays freshly initialised: the
+        classifier's head has classifier shapes. Both models build the
+        trunk from the same ``BACKBONES`` entry, so the names line up."""
+        trunk = self.featcnn.trunk
+        cur = set(dict(trunk.named_parameters())) | set(
+            dict(trunk.named_buffers()))
+        new = set(trunk_params) | set(trunk_stats)
+        if cur != new:
+            raise ValueError(
+                f"trunk param mismatch: only-ours={sorted(cur - new)[:4]} "
+                f"only-theirs={sorted(new - cur)[:4]} (stem/backbone must "
+                f"match the classifier's)")
+        trunk.load_state_dict({**trunk_params, **trunk_stats}, strict=True)
 
     def levels_for_epoch(self, epoch: int) -> Tuple[int, ...]:
         return curriculum_levels_for_epoch(self.curriculum, epoch)

@@ -132,6 +132,44 @@ def test_hyperbolic_joint_step_on_the_card(gen):
     assert bool((norms <= 1 - 1e-5 + 1e-6).all())
 
 
+def test_label_runner_resumes_on_the_card(gen, tmp_path):
+    """run_label_embedding with the order energy on the card, 2 epochs
+    then --resume to 3: every reconstruction (check_reconstr_every 1, and
+    the final one) launches the exact_d kernel once, the checkpoints load
+    back to the card, and the resumed run starts at epoch 2."""
+    import json
+    import os
+
+    from learning_embeddings_tpu_torch.hierarchy import (
+        label_graph_from_paths, split_edges, toy_labelmap)
+    from learning_embeddings_tpu_torch.train.embedding import (
+        EmbeddingTrainerConfig)
+    from learning_embeddings_tpu_torch.train.runner import (
+        run_label_embedding)
+
+    lm = toy_labelmap(3, 3)
+    splits = split_edges(label_graph_from_paths(lm.leaf_paths(), lm),
+                         proportion_of_nb_edges_in_train=0.5, val_frac=0.15,
+                         test_frac=0.15)
+    cfg = EmbeddingTrainerConfig(energy="order", optimizer="adam",
+                                 embedding_dim=10, batch_size=8, lr=1e-2)
+    kw = dict(experiment_dir=str(tmp_path), experiment_name="r",
+              check_reconstr_every=1)
+    before = (k3.LAUNCHES, k3.EXACT_D_LAUNCHES)
+    run_label_embedding(lm, splits, cfg, n_epochs=2, **kw)
+    res = run_label_embedding(lm, splits, cfg, n_epochs=3, resume=True, **kw)
+    torch.cuda.synchronize()
+    # 2 + 1 per-epoch reconstructions and one final one per run
+    assert (k3.LAUNCHES - before[0], k3.EXACT_D_LAUNCHES - before[1]) == \
+        (5, 5)
+    assert res["trainer"].model.embedding.device.type == "cuda"
+    assert np.isfinite(res["reconstruction_f1"])
+    with open(os.path.join(str(tmp_path), "r", "logs", "metrics.jsonl")) as f:
+        steps = [json.loads(line)["step"] for line in f
+                 if '"train/loss"' in line]
+    assert steps == [0, 1, 2]
+
+
 def test_label_only_epoch_on_the_card(gen):
     """One epoch of the label-only trainer on the card for each energy the
     smoke run trains; the order run's reconstruction launches the exact_d

@@ -1,6 +1,5 @@
-"""The port, chip_smoke.py and k3_variants.py import neither JAX nor the
-JAX package, the
-port imports triton only inside functions (the CUDA path), and its CPU path
+"""The port, chip_smoke.py, k3_variants.py and onednn_dw_repro.py import
+neither JAX nor the JAX package, the port imports triton only inside functions (the CUDA path), and its CPU path
 never builds or loads the CUDA kernel library."""
 
 import ast
@@ -12,7 +11,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "learning_embeddings_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "learning_embeddings_tpu")
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                     ROOT / "k3_variants.py"]
+                                     ROOT / "k3_variants.py",
+                                     ROOT / "onednn_dw_repro.py"]
 
 
 def _imports(tree):
@@ -42,7 +42,13 @@ def test_port_has_the_slice_modules():
                 "train/joint.py", "train/joint_cnn.py",
                 # slice 4
                 "geometry/poincare.py", "optim/__init__.py",
-                "optim/rsgd.py", "train/embedding.py"]:
+                "optim/rsgd.py", "train/embedding.py",
+                # slice 5
+                "data/records.py", "train/experiment.py", "train/runner.py",
+                "viz/toy.py", "cli/__init__.py", "cli/common.py",
+                "cli/order_embeddings.py", "cli/order_embeddings_h.py",
+                "cli/embed_toy.py", "cli/validate_embedding.py",
+                "cli/_joint_main.py", "cli/oe.py", "cli/oe_h.py"]:
         assert (PORT / rel).is_file(), rel
     assert (ROOT / "chip_smoke.py").is_file()
 
@@ -66,6 +72,22 @@ def test_triton_only_imported_inside_functions(path):
         for name, imp in _imports(node):
             assert name.split(".")[0] != "triton", (
                 f"{path.name}:{imp.lineno} imports triton at import time")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_optional_libraries_only_imported_inside_functions(path):
+    """cv2, PIL and matplotlib (absent on some machines) and tensorboard
+    (slow to import) load only where a function needs them."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            continue
+        for name, imp in _imports(node):
+            assert name.split(".")[0] not in ("cv2", "PIL", "matplotlib") \
+                and not name.startswith("torch.utils.tensorboard"), (
+                    f"{path.name}:{imp.lineno} imports {name} at import "
+                    "time")
 
 
 def test_cpu_path_never_builds_or_loads_the_cuda_library(monkeypatch):
