@@ -86,6 +86,22 @@ and prints no result line):
             a step; each split's eval, one checkpoint's save, load and size.
 9. slice 5  cli/oe_h.py --use_CNN end to end on 120 Butterfly200 records
             with PNG images the script writes (decoded by cv2).
+10. slice 6 the classifier experiment through cli/ethec_experiments.py at
+            the flagship width (ResNet-50@448, batch 128, multi_level,
+            Adam lr 1e-5, 8 decode threads) on the same taxonomy: 1024
+            train, 256 val and 256 test records of every leaf in turn,
+            pointing at 256 distinct 375×500 PNGs the script writes; 2
+            epochs with --profile 2, --resume to 3, --set_mode test (the
+            best model reloaded), --loss multi_label --evaluator ML for 1
+            epoch (per-class thresholds tuned on val), then cli/image_emb.py
+            on the first experiment. Asserts 53 + 53 BN launches per train
+            step and none in the eval steps, the checkpoints, the resumed
+            epochs, the score dump's shape, the test run's best epoch and
+            micro-F1, finite thresholds and mAP in [0, 1], and 2048-wide
+            f32 features for every split; reports the epoch time split
+            into data wait, steps, eval and checkpoints, images/s, peak
+            memory, the profile's top ops and one checkpoint's save, load
+            and size.
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last is {"ok": true, "device": {...}}. A `kernels` JSON line and the
@@ -1653,10 +1669,264 @@ def oe_h_cli_phase(n_leaves=40, per_leaf=3, image_hw=(375, 500)):
 
 
 # --------------------------------------------------------------------------
+# phase 10: slice 6, the classifier experiment through its CLIs
+# --------------------------------------------------------------------------
+def _leaf_record(labelmap, leaf, i, image_name):
+    """An ETHEC record of `labelmap`'s leaf `leaf`, token s{i}."""
+    path = labelmap.leaf_paths()[leaf]
+    names = [labelmap.ix_to_name[l][path[l]] for l in range(4)]
+    epithet = names[3].split(".", 1)[-1][len(names[2]) + 1:]
+    return {"token": f"s{i:05d}", "family": names[0],
+            "subfamily": names[1], "genus": names[2],
+            "specific_epithet": epithet, "image_path": "pool",
+            "image_name": image_name}
+
+
+#: BatchNorm layers and feature width of the backbones the phases run
+BACKBONE_BN_FEATURES = {"resnet18": (20, 512), "resnet50": (53, 2048)}
+
+
+def classifier_cli_phase(labelmap, n_train=1024, n_val=256, n_test=256,
+                         pool=256, image_hw=(375, 500), image_size=448,
+                         batch=128, workers=8, epochs=2, resume_to=3,
+                         profile=2, backbone="resnet50"):
+    """cli/ethec_experiments.py and cli/image_emb.py through main(argv) at
+    the flagship width (ResNet-50@448, batch 128, multi_level, Adam lr
+    1e-5) on `labelmap`'s taxonomy: records of every leaf in turn
+    (n_train / n_val / n_test), each pointing at one of `pool` distinct
+    PNGs the script writes, decoded by cv2 on `workers` threads. Runs,
+    each a path of its own: (a) `epochs` epochs with --profile, (b)
+    --resume to `resume_to`, (c) --set_mode test, (d) --loss multi_label
+    --evaluator ML for one epoch, (e) image_emb on (a)'s experiment.
+    Every train step launches 53 + 53 BN kernels (ResNet-50), no eval step
+    any: each run's launches are exactly 53 + 53 times the train steps
+    run_classifier reports, and (c), which only evaluates, launches
+    none."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch import data
+    from learning_embeddings_tpu_torch.cli import ethec_experiments, image_emb
+    from learning_embeddings_tpu_torch.data.pipeline import _cv2
+    from learning_embeddings_tpu_torch.hierarchy import labelmap_from_records
+    from learning_embeddings_tpu_torch.train.experiment import (
+        Checkpointer, ExperimentDir)
+    from learning_embeddings_tpu_torch.utils.profiling import summarize_trace
+
+    cv2 = _cv2()
+    if cv2 is None:
+        raise AssertionError("cv2 does not import on this machine")
+    root = os.path.join(EXPERIMENTS, "classifier_data")
+    rng = np.random.RandomState(0)
+    os.makedirs(os.path.join(root, "images", "pool"), exist_ok=True)
+    t0 = time.perf_counter()
+    for i in range(pool):
+        cv2.imwrite(os.path.join(root, "images", "pool", f"p{i:03d}.png"),
+                    rng.randint(0, 256, (*image_hw, 3)).astype(np.uint8))
+    n_leaf = labelmap.levels[-1]
+    records, i = {}, 0
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        records[split] = []
+        for _ in range(n):
+            records[split].append(_leaf_record(
+                labelmap, i % n_leaf, i, f"p{rng.randint(pool):03d}.png"))
+            i += 1
+        os.makedirs(os.path.join(root, "splits"), exist_ok=True)
+        data.save_ethec_json(records[split], os.path.join(
+            root, "splits", f"{split}.json"))
+    write_s = time.perf_counter() - t0
+    # the taxonomy the CLI builds from the records: all of `labelmap`'s
+    # when every leaf has a train record
+    n_classes = labelmap_from_records(
+        [r for rs in records.values() for r in rs]).n_classes
+
+    exp_dir = os.path.join(EXPERIMENTS, "classifier")
+    base = ["--data_dir", os.path.join(root, "splits"), "--image_dir",
+            os.path.join(root, "images"), "--experiment_dir", exp_dir,
+            "--model", backbone, "--image_size", str(image_size),
+            "--batch_size", str(batch), "--lr", "1e-5", "--n_workers",
+            str(workers), "--device", DEV]
+    steps_per_epoch = n_train // batch
+    n_bn, width = BACKBONE_BN_FEATURES[backbone]
+    runs = {
+        "cli_classifier_train": (
+            "e", base + ["--experiment_name", "e", "--loss", "multi_level",
+                         "--n_epochs", str(epochs), "--set_mode", "train",
+                         "--profile", str(profile)],
+            epochs * steps_per_epoch + 1 + profile),
+        "cli_classifier_resume": (
+            "e", base + ["--experiment_name", "e", "--loss", "multi_level",
+                         "--n_epochs", str(resume_to), "--set_mode",
+                         "train", "--resume"],
+            (resume_to - epochs) * steps_per_epoch),
+        "cli_classifier_test": (
+            "e", base + ["--experiment_name", "e", "--loss", "multi_level",
+                         "--n_epochs", str(resume_to), "--set_mode",
+                         "test"], 0),
+        "cli_classifier_multi_label": (
+            "ml", base + ["--experiment_name", "ml", "--loss",
+                          "multi_label", "--evaluator", "ML", "--n_epochs",
+                          "1", "--set_mode", "train"], steps_per_epoch),
+    }
+    paths, out, results = {}, {"runs": {}, "write_images_s": write_s}, {}
+    for name, (exp_name, argv, want_steps) in runs.items():
+        eroot = os.path.join(exp_dir, exp_name)
+        seen = (len(_jsonl(eroot)) if os.path.exists(os.path.join(
+            eroot, "logs", "metrics.jsonl")) else 0)
+        torch.cuda.reset_peak_memory_stats()
+        res, seconds = _run_path(
+            name, lambda: ethec_experiments.main(argv), paths)
+        results[name] = res
+        launches = paths[name]
+        if res["train_steps"] != want_steps:
+            raise AssertionError(f"{name}: {res['train_steps']} train "
+                                 f"steps, expected {want_steps}")
+        for k in ("bn_stats", "bn_corr"):
+            # n_bn a train step, none in the eval passes
+            if launches[k] != n_bn * res["train_steps"]:
+                raise AssertionError(
+                    f"{name}: {k} launched {launches[k]} times in "
+                    f"{res['train_steps']} train steps and the eval "
+                    f"passes, expected {n_bn} a train step and none in "
+                    f"an eval")
+        metrics = _jsonl(eroot)[seen:]      # this run's records
+        bad = [r for r in metrics if not math.isfinite(r["value"])]
+        if bad or not all(map(math.isfinite, res["test_metrics"].values())):
+            raise AssertionError(f"{name}: non-finite metrics {bad} "
+                                 f"{res['test_metrics']}")
+
+        def per_epoch(tag):
+            return [r["value"] for r in metrics if r["tag"] == tag]
+        out["runs"][name] = {
+            "seconds": seconds, "train_steps": res["train_steps"],
+            "launches_per_step": {
+                k: launches[k] / max(res["train_steps"], 1)
+                for k in ("bn_stats", "bn_corr")},
+            "best_epoch": res["best_epoch"],
+            "best_val_score": res["best_val_score"],
+            "test_metrics": res["test_metrics"],
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30,
+            **{tag: per_epoch(tag) for tag in (
+                "epoch_time", "epoch_time_train",
+                "epoch_time_data_wait", "epoch_time_eval",
+                "epoch_time_checkpoint", "train/loss")}}
+
+    root_e = os.path.join(exp_dir, "e")
+    a, b, c, d = (out["runs"][k] for k in runs)
+    ckpt = Checkpointer(ExperimentDir(exp_dir, "e"))
+    on_disk = sorted(os.listdir(ckpt.dir))
+    want = [str(e) for e in range(resume_to)] + ["best_model"]
+    if [f for f in on_disk if not f.startswith(".")] != want:
+        raise AssertionError(f"checkpoints {on_disk}, expected {want}")
+    if _steps(root_e, "train/loss") != list(range(resume_to)):
+        raise AssertionError(f"train epochs {_steps(root_e, 'train/loss')}"
+                             f", expected 0..{resume_to - 1} once each "
+                             f"(the resumed run starts at {epochs})")
+    scores = np.load(os.path.join(root_e, "stats", "predicted_scores.npy"))
+    if scores.shape != (n_test, n_classes):
+        raise AssertionError(f"predicted_scores {scores.shape}")
+    # (c) restores best_model's weights only, as the JAX runner does: the
+    # checkpoint it scored is the one (b) took at its best epoch
+    scored = int(ckpt.load_raw("best_model")["best_epoch"])
+    if scored != b["best_epoch"] or abs(
+            c["test_metrics"]["micro_f1"]
+            - b["test_metrics"]["micro_f1"]) > 1 / n_test:
+        raise AssertionError(f"--set_mode test: best_model of epoch "
+                             f"{scored}, micro-F1 "
+                             f"{c['test_metrics']['micro_f1']}; the resumed "
+                             f"run: {b['best_epoch']}, "
+                             f"{b['test_metrics']['micro_f1']}")
+    th = results["cli_classifier_multi_label"]["thresholds"]
+    if th is None or th.shape != (n_classes,) or not np.isfinite(th).all():
+        raise AssertionError(f"multi_label: per-class thresholds not tuned "
+                             f"or not finite: {th}")
+    if not 0.0 <= d["test_metrics"]["mAP"] <= 1.0:
+        raise AssertionError(f"multi_label mAP {d['test_metrics']['mAP']}")
+
+    # (e) the fc7 features of (a)'s best model: eval-mode BN, no kernel
+    emb_dir = os.path.join(EXPERIMENTS, "classifier_emb")
+    _, seconds = _run_path("cli_image_emb", lambda: image_emb.main(
+        ["--data_dir", os.path.join(root, "splits"), "--image_dir",
+         os.path.join(root, "images"), "--output_dir", emb_dir, "--model",
+         backbone, "--experiment_load_dir", root_e, "--image_size",
+         str(image_size), "--batch_size", str(batch), "--n_workers",
+         str(workers), "--device", DEV]), paths)
+    if paths["cli_image_emb"]["bn_stats"] or paths["cli_image_emb"][
+            "bn_corr"]:
+        raise AssertionError(f"image_emb launched {paths['cli_image_emb']}")
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        with np.load(os.path.join(emb_dir, f"{split}.npz")) as z:
+            f = z["features"]
+            if f.shape != (n, width) or f.dtype != np.float32 or \
+                    not np.isfinite(f).all() or len(z["paths"]) != n:
+                raise AssertionError(f"image_emb {split}: {f.shape} "
+                                     f"{f.dtype}")
+    out["image_emb_s"] = seconds
+
+    # the profile of (a), one checkpoint's save, load and size
+    top = summarize_trace(os.path.join(root_e, "stats", "trace"), profile)
+    out["profile_top"] = [{"name": n[:80], "ms_per_step": ms, "share": sh}
+                          for n, ms, sh in top[:10]]
+    t0 = time.perf_counter()
+    payload = ckpt.load_raw("best_model")
+    out["checkpoint_load_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ckpt.save("timed", payload)
+    out["checkpoint_save_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["checkpoint_bytes"] = os.path.getsize(os.path.join(ckpt.dir,
+                                                           "timed"))
+    steps_s = [t - w for t, w in zip(a["epoch_time_train"] +
+                                     b["epoch_time_train"],
+                                     a["epoch_time_data_wait"] +
+                                     b["epoch_time_data_wait"])]
+    out.update({
+        "n_train": n_train, "n_val": n_val, "n_test": n_test,
+        "pool_images": pool, "image_hw": list(image_hw),
+        "image_size": image_size, "batch": batch, "workers": workers,
+        "backbone": backbone, "n_classes": n_classes,
+        "steps_per_epoch": steps_per_epoch,
+        "decoder": f"cv2 {cv2.__version__}",
+        "epoch_steps_s": steps_s,
+        "images_per_s_steps": [batch * steps_per_epoch / t
+                               for t in steps_s],
+        "images_per_s_train_pass": [
+            batch * steps_per_epoch / t
+            for t in a["epoch_time_train"] + b["epoch_time_train"]]})
+    for name, r in out["runs"].items():
+        log(f"[classifier] {name}: {r['train_steps']} train steps in "
+            f"{r['seconds']:.1f} s, best "
+            f"epoch {r['best_epoch']}, test " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["test_metrics"].items()
+                if "/" not in k) + f"; peak "
+            f"{r['max_memory_allocated_gib']:.2f} GiB; launches "
+            f"{paths[name]}")
+        if r["epoch_time"]:
+            log(f"[classifier]   epochs {r['epoch_time']} s: train pass "
+                f"{r['epoch_time_train']} (data wait "
+                f"{r['epoch_time_data_wait']}), eval "
+                f"{r['epoch_time_eval']}, checkpoints "
+                f"{r['epoch_time_checkpoint']}")
+    log(f"[classifier] steps {[round(t, 3) for t in steps_s]} s an epoch: "
+        f"{[round(x, 1) for x in out['images_per_s_steps']]} images/s "
+        f"({[round(x, 1) for x in out['images_per_s_train_pass']]} over "
+        f"the train pass); checkpoint {out['checkpoint_bytes']} bytes, "
+        f"save {out['checkpoint_save_ms']:.1f} ms, load "
+        f"{out['checkpoint_load_ms']:.1f} ms; image_emb {seconds:.1f} s")
+    if not top:
+        log("[classifier] the profiler saw no device time: top ops not "
+            "measured")
+    for t in out["profile_top"]:
+        log(f"[classifier]   profile {t['ms_per_step']:9.3f} ms/step "
+            f"{t['share']:.3f} {t['name']}")
+    return out, paths
+
+
+# --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
-                eval_prof, hyp_result, label_results, slice5_paths):
+                eval_prof, hyp_result, label_results, cli_paths):
     """One record per kernel. BN kernels: one classifier step's 53
     launches at its shapes; pairwise_order: one joint eval's calls at its
     shapes through the route the wrapper takes (exact_d at D = 10), with
@@ -1667,14 +1937,14 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
     BN kernels, the joint path for pairwise_order; launches_by_route
     splits the latter by route); launches_by_path gives every kernel's
     count on every path, each counted from 0 over that path's run (the
-    slice-5 CLIs and runner runs among them, with pairwise_order's
-    exact_d count beside its total)."""
+    CLIs and runner runs of slices 5 and 6 among them, with
+    pairwise_order's exact_d count beside its total)."""
     paths = {"classifier": slice_result["launches"],
              "joint_order": joint_result["launches"],
              "joint_hyp_cone": hyp_result["launches"]}
     paths.update({"label_only_" + k: v["launches"]
                   for k, v in label_results.items()})
-    paths.update(slice5_paths)
+    paths.update(cli_paths)
 
     def by_path(name):
         return {p: c.get(name, 0) for p, c in paths.items()}
@@ -1787,16 +2057,19 @@ def main(argv=None):
 
     shutil.rmtree(EXPERIMENTS, ignore_errors=True)
     try:
-        cli, slice5_paths, warm = label_cli_phase()
+        cli, cli_paths, warm = label_cli_phase()
         runner, runner_paths = joint_runner_phase(warm)
-        slice5_paths.update(runner_paths)
+        cli_paths.update(runner_paths)
         torch.cuda.empty_cache()
         oe_h_cli, oe_h_paths = oe_h_cli_phase()
-        slice5_paths.update(oe_h_paths)
+        cli_paths.update(oe_h_paths)
+        torch.cuda.empty_cache()
+        classifier_cli, classifier_paths = classifier_cli_phase(labelmap)
+        cli_paths.update(classifier_paths)
     finally:
         shutil.rmtree(EXPERIMENTS, ignore_errors=True)
     kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof,
-                          hyp, label, slice5_paths)
+                          hyp, label, cli_paths)
 
     details = {"nvidia_smi": smi, "torch": torch.__version__,
                "cuda": torch.version.cuda, "slice": result,
@@ -1805,7 +2078,8 @@ def main(argv=None):
                "hyp_joint": hyp, "hyp_joint_profile": hprof,
                "label_only": label, "label_cli": cli,
                "joint_runner": runner, "oe_h_cli": oe_h_cli,
-               "slice5_launches": slice5_paths,
+               "classifier_cli": classifier_cli,
+               "cli_launches": cli_paths,
                "kernel_shapes": bn_rows, "pairwise_order": k3_result,
                "kernels": kernels,
                "seconds": time.perf_counter() - t_start}

@@ -7,7 +7,7 @@ kernels of ``ops/bn_triton.py`` on the card, and with the order energy the
 eval's all-pairs energies are the kernel of ``ops/pairwise_order.py``.
 
 Pixels decode through ``data/pipeline.py`` (cv2, else PIL). Not ported
-yet: the fc7 path without ``--use_CNN`` (slice 6, ROADMAP.md), which
+yet: the fc7 path without ``--use_CNN`` (slice 7, ROADMAP.md), which
 raises, and the native JPEG loader.
 """
 
@@ -158,7 +158,7 @@ def joint_main(args, default_energy: str):
     if not args.use_CNN:
         raise NotImplementedError(
             "the fc7 joint path (without --use_CNN) is not ported yet: "
-            "slice 6 (ROADMAP.md)")
+            "slice 7 (ROADMAP.md)")
     if args.model is None:   # effective backbone lands in the manifest
         args.model = "resnet18"
     labelmap, datasets, _ = load_ethec_data(args.data_dir, args.debug)

@@ -1,14 +1,16 @@
 """Shared CLI plumbing: the port of ``learning_embeddings_tpu/cli/common.py``
 (ETHEC dataset loading, debug subsetting, the common argparse flags; flag
-names, types and defaults are the JAX package's), plus the port's own
-``--device`` flag. ``inverse_class_weights`` comes with the classifier
-CLI."""
+names, types and defaults are the JAX package's; the classifier's
+inverse-frequency class weights), plus the port's own ``--device``
+flag."""
 
 from __future__ import annotations
 
 import argparse
 import os
 from typing import Dict
+
+import numpy as np
 
 from ..data import (encode_records, filter_to_labelmap, load_ethec_json,
                     stratified_split)
@@ -61,6 +63,13 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
                         help="Transfer float32 pixels host->device instead "
                              "of the default uint8-with-on-device-scale.")
     add_device_flag(parser)
+
+
+def inverse_class_weights(dataset, labelmap):
+    """Inverse-class-frequency loss weights over the train multi-hot."""
+    mh = dataset.multihot(labelmap)
+    counts = np.maximum(mh.sum(axis=0), 1.0)
+    return (1.0 / counts).astype(np.float32)
 
 
 def load_ethec_data(data_dir: str, debug: bool = False,

@@ -2,11 +2,12 @@
 
 The port's own copy of the name and layout mapping of the JAX package's
 ``models/torch_import.py::export_torchvision_resnet`` (lines 94-123),
-extended to a whole trunk + ``fc`` model: the ``HierarchicalCNN``
-classifier and the joint trainer's ``FeatCNN`` image tower, whose flax
-trees have the same {"trunk", "fc"} params and {"trunk"} batch_stats:
+extended to a whole trunk + head model: the ``HierarchicalCNN``
+classifier (any head: ``fc``, or ``bottleneck`` and ``level_fc{l}``) and
+the joint trainer's ``FeatCNN`` image tower, whose flax trees have
+{"trunk", head Dense layers} params and {"trunk"} batch_stats:
 
-  conv kernel   HWIO → OIHW          fc kernel (in, out) → weight (out, in)
+  conv kernel   HWIO → OIHW          Dense kernel (in, out) → weight (out, in)
   BN scale/bias/mean/var → weight/bias/running_mean/running_var
   layer{i}_{j}  → layer{i}.{j}       downsample_conv/bn → downsample.0/.1
 
@@ -28,7 +29,8 @@ __all__ = ["state_dict_from_jax", "label_table_from_jax",
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                         stage_sizes: Sequence[int]) -> Dict[str, torch.Tensor]:
     """State dict for the port's ``HierarchicalCNN`` or ``FeatCNN`` from
-    the JAX model's ``params`` ({"trunk": ..., "fc": ...}) and
+    the JAX model's ``params`` ({"trunk": ..., "fc": ...} or another
+    head's Dense layers) and
     ``batch_stats`` ({"trunk": ...}); loads with
     ``load_state_dict(strict=True)``."""
     out: Dict[str, torch.Tensor] = {}
@@ -60,8 +62,12 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                 conv(f"{ours}.downsample.0", blk["downsample_conv"])
                 bn(f"{ours}.downsample.1", blk["downsample_bn"],
                    blk_s["downsample_bn"])
-    put("fc.weight", np.asarray(params["fc"]["kernel"]).T)
-    put("fc.bias", params["fc"]["bias"])
+    for name, dense in params.items():     # the head's Dense layers
+        if name == "trunk":
+            continue
+        put(f"{name}.weight", np.asarray(dense["kernel"]).T)
+        if "bias" in dense:
+            put(f"{name}.bias", dense["bias"])
     return out
 
 

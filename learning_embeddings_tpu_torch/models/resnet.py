@@ -105,14 +105,14 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """The trunk: returns the pooled f32 features (B, feature_dim), as the
     JAX ResNet does with ``features_only=True`` (heads live in
-    ``models/heads.py``)."""
+    ``models/heads.py``). `in_channels` is 1 for grayscale input."""
 
     def __init__(self, stage_sizes: Sequence[int], block: Type[nn.Module],
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.dtype = dtype
-        self.conv1 = Conv2d(3, 64, 7, 2, 3)
+        self.conv1 = Conv2d(in_channels, 64, 7, 2, 3)
         self.bn1 = FusedBatchNorm(64, dtype=dtype)
         cin = 64
         for i, n_blocks in enumerate(self.stage_sizes):

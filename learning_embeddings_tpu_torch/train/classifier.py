@@ -3,16 +3,28 @@
 
 One train step is: uint8 NHWC images scaled on the device, a ResNet trunk
 with train-mode BatchNorm (its reductions in the kernels of
-``ops/bn_triton.py`` on the card), one f32 linear head over all taxonomy
-nodes, ``multi_level_ce`` and Adam (or SGD with momentum 0.9) with the
-epoch-based step decay of the JAX package.
+``ops/bn_triton.py`` on the card), a criterion-matched f32 head, the
+criterion, and Adam (or SGD with momentum 0.9) with the epoch-based step
+decay of the JAX package. The criterion picks the head and the scores the
+evaluator reads:
 
-Ported so far: criterion ``multi_level_ce``, ``bn_impl='pallas'`` (the
-fused-reduction BatchNorm, under the JAX package's name so configurations
-map one-to-one), ``freeze_bn``, one device. Still to come (ROADMAP.md):
-the other criteria and heads, flax/ghost BatchNorm, bf16 statistics, the
-s2d stem, remat, ``freeze_trunk``, ``grad_accum``, meshes and spatial
-partitioning.
+| criterion        | head         | eval scores                     |
+|------------------|--------------|---------------------------------|
+| multi_level_ce   | multi_head   | raw logits                      |
+| last_level_ce    | leaf         | bottom-up propagated probs      |
+| masked_ce        | multi_head   | predicted-chain-masked logits   |
+| multi_label_sm   | multi_head   | raw logits                      |
+| hsoftmax         | hsoftmax     | chained log-probs               |
+
+Options as in the JAX package: ``head_override`` ('bottleneck2d'),
+``freeze_bn`` (BN in inference mode: no BN kernel runs),
+``freeze_trunk`` (only the head is updated; the trunk's parameters take
+no gradient, so no backward pass runs through it, while its BN running
+statistics still move in train mode), ``grad_accum`` (k micro-batches
+average into one optimizer update, as ``optax.MultiSteps`` does; the BN
+statistics update on every micro-batch), grayscale input and
+``load_backbone_state_dict``. ``bn_impl='pallas'`` (the fused-reduction
+BatchNorm) is the only BatchNorm (ROADMAP.md queue A item 18).
 
 State: PyTorch updates in place, which is what the JAX step's buffer
 donation amounts to. ``train_step`` returns the state it was given, with
@@ -28,16 +40,33 @@ import numpy as np
 import torch
 
 from ..hierarchy import LabelMap
-from ..losses.classification import make_multi_level_ce
+from ..losses.classification import (
+    _PerDevice,
+    hierarchical_softmax_nll,
+    make_hierarchical_softmax,
+    make_last_level_ce,
+    make_masked_ce,
+    make_multi_level_ce,
+    multi_label_soft_margin,
+)
 from ..models.heads import HierarchicalCNN
 from ..models.resnet import init_params_
 from ..ops.image import device_scale
 
 __all__ = ["ClassifierConfig", "ClassifierTrainer", "TrainState",
-           "make_criterion", "resolve_device", "CRITERIA"]
+           "make_criterion", "resolve_device", "CRITERIA",
+           "CRITERION_TO_HEAD"]
 
 CRITERIA = ("multi_level_ce", "last_level_ce", "masked_ce",
             "multi_label_sm", "hsoftmax")
+
+CRITERION_TO_HEAD = {
+    "multi_level_ce": "multi_head",
+    "last_level_ce": "leaf",
+    "masked_ce": "multi_head",
+    "multi_label_sm": "multi_head",
+    "hsoftmax": "hsoftmax",
+}
 
 BN_IMPLS = ("pallas",)
 
@@ -64,13 +93,16 @@ class ClassifierConfig:
     steps_per_epoch: int = 1           # converts lr_steps (epochs) → steps
     level_weights: Optional[Sequence[float]] = None
     class_weights: Optional[np.ndarray] = None
+    freeze_trunk: bool = False         # only the head trains
     image_size: int = 448
     batch_size: int = 64
     seed: int = 0
     dtype: torch.dtype = torch.bfloat16  # trunk activations; params are f32
+    head_override: Optional[str] = None  # e.g. 'bottleneck2d' (--use_2d)
     freeze_bn: bool = False  # train with BN in inference mode (frozen
     #                          running statistics; runs no BN kernel)
     bn_impl: str = "pallas"  # the fused-reduction BN (ops.bn + ops.bn_triton)
+    grad_accum: int = 1      # micro-batches per optimizer update
     device: str = "cuda"
 
 
@@ -80,6 +112,7 @@ class TrainState:
     model: HierarchicalCNN
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
+    micro: int = 0   # micro-batches accumulated towards the next update
 
 
 def make_criterion(labelmap: LabelMap, cfg: ClassifierConfig):
@@ -91,39 +124,78 @@ def make_criterion(labelmap: LabelMap, cfg: ClassifierConfig):
         f = make_multi_level_ce(labelmap, cfg.level_weights,
                                 cfg.class_weights)
         return lambda raw, ll, mh: (f(raw, ll), raw)
-    if name in CRITERIA:
-        raise NotImplementedError(
-            f"criterion {name!r} is not ported yet (ROADMAP.md queue A "
-            "item 5: losses/classification.py)")
+    if name == "last_level_ce":
+        f = make_last_level_ce(labelmap, cfg.level_weights,
+                               cfg.class_weights)
+
+        def fn(raw, ll, mh):
+            probs, loss = f(raw, ll)
+            return loss, probs
+        return fn
+    if name == "masked_ce":
+        f = make_masked_ce(labelmap, cfg.level_weights)
+
+        def fn(raw, ll, mh):
+            outputs, loss = f(raw, ll)
+            return loss, outputs
+        return fn
+    if name == "multi_label_sm":
+        weights = _PerDevice(None if cfg.class_weights is None else
+                             np.asarray(cfg.class_weights, np.float32))
+
+        def fn(raw, ll, mh):
+            (w,) = weights.on(raw.device)
+            return multi_label_soft_margin(raw, mh, w), raw
+        return fn
+    if name == "hsoftmax":
+        norm = make_hierarchical_softmax(labelmap)
+
+        def fn(raw, ll, mh):
+            all_lp, leaf_lp = norm(raw)
+            return hierarchical_softmax_nll(leaf_lp, ll), all_lp
+        return fn
     raise ValueError(f"unknown criterion {name!r}; expected {CRITERIA}")
 
 
-class ClassifierTrainer:
-    """Builds the model, optimizer and steps on `cfg.device`."""
+def _check_ported(cfg: ClassifierConfig) -> None:
+    if cfg.bn_impl not in BN_IMPLS:
+        raise NotImplementedError(
+            f"bn_impl={cfg.bn_impl!r} is not ported yet; ported: "
+            f"{BN_IMPLS} (ROADMAP.md queue A item 18)")
+    if cfg.optimizer not in ("adam", "sgd"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    if cfg.grad_accum < 1:
+        raise ValueError(f"grad_accum must be ≥ 1, got {cfg.grad_accum}")
 
-    def __init__(self, labelmap: LabelMap, cfg: ClassifierConfig):
-        if cfg.bn_impl not in BN_IMPLS:
-            raise NotImplementedError(
-                f"bn_impl={cfg.bn_impl!r} is not ported yet; ported: "
-                f"{BN_IMPLS} (ROADMAP.md queue A item 18)")
-        if cfg.optimizer not in ("adam", "sgd"):
-            raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+class ClassifierTrainer:
+    """Builds the model, optimizer and steps on `cfg.device`; `grayscale`
+    gives the trunk one input channel."""
+
+    def __init__(self, labelmap: LabelMap, cfg: ClassifierConfig,
+                 grayscale: bool = False):
+        _check_ported(cfg)
         self.labelmap = labelmap
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.criterion = make_criterion(labelmap, cfg)
-        model = HierarchicalCNN(backbone=cfg.backbone,
-                                levels=tuple(labelmap.levels),
-                                dtype=cfg.dtype)
+        self.n_channels = 1 if grayscale else 3
+        model = HierarchicalCNN(
+            backbone=cfg.backbone, levels=tuple(labelmap.levels),
+            head=cfg.head_override or CRITERION_TO_HEAD[cfg.criterion],
+            dtype=cfg.dtype, in_channels=self.n_channels)
         init_params_(model, torch.Generator().manual_seed(cfg.seed))
         model.to(device=self.device, memory_format=torch.channels_last)
+        if cfg.freeze_trunk:
+            model.trunk.requires_grad_(False)
 
         # reference MultiStepLR steps once per EPOCH while the schedule
         # counts optimizer updates: update k runs at lr × Π{decay : b ≤ k}
-        # (optax.piecewise_constant_schedule semantics)
-        spe = max(int(cfg.steps_per_epoch), 1)
+        # (optax.piecewise_constant_schedule semantics); under gradient
+        # accumulation an epoch has steps_per_epoch // grad_accum updates
+        spe = max(int(cfg.steps_per_epoch) // cfg.grad_accum, 1)
         self._boundaries = sorted({int(b) * spe for b in cfg.lr_steps})
-        params = list(model.parameters())
+        params = [p for p in model.parameters() if p.requires_grad]
         if cfg.optimizer == "adam":   # optax.adam defaults
             opt = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
                                    eps=1e-8)
@@ -147,15 +219,21 @@ class ClassifierTrainer:
         return model(device_scale(images).permute(0, 3, 1, 2))
 
     def train_step(self, state: TrainState, images, level_labels, multihot):
-        """One optimizer update on a batch from ``put_batch``; returns
-        (state, loss) with the loss as a 0-d device tensor."""
+        """One micro-batch from ``put_batch``; every `grad_accum`-th one
+        applies the optimizer update to the mean of their gradients.
+        Returns (state, loss) with the loss as a 0-d device tensor."""
+        k = self.cfg.grad_accum
         state.model.train(not self.cfg.freeze_bn)
         raw = self._forward(state.model, images)
         loss, _ = self.criterion(raw, level_labels, multihot)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
-        state.scheduler.step()
+        if state.micro == 0:
+            state.optimizer.zero_grad(set_to_none=True)
+        (loss / k if k > 1 else loss).backward()
+        state.micro += 1
+        if state.micro == k:
+            state.optimizer.step()
+            state.scheduler.step()
+            state.micro = 0
         state.step += 1
         return state, loss.detach()
 
@@ -166,17 +244,38 @@ class ClassifierTrainer:
         return self.criterion(raw, level_labels, multihot)
 
     # ------------------------------------------------------------------
+    def load_backbone_state_dict(self, path: str) -> None:
+        """Start the trunk from a torchvision ResNet state-dict file (the
+        reference's pretrained=True backbones; --load_backbone_from). The
+        port's names are torchvision's: the file's ``fc.*`` and
+        ``num_batches_tracked`` entries are dropped and the rest loads
+        strictly. A grayscale trunk keeps its fresh ``conv1``."""
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if hasattr(sd, "state_dict"):
+            sd = sd.state_dict()
+        sd = {k: v for k, v in sd.items() if not k.startswith("fc.")
+              and not k.endswith("num_batches_tracked")}
+        trunk = self.state.model.trunk
+        if self.n_channels != 3:
+            sd["conv1.weight"] = trunk.conv1.weight.detach()
+        trunk.load_state_dict(sd, strict=True)
+
+    # ------------------------------------------------------------------
     def checkpoint_payload(self) -> dict:
         """Trainer half of the checkpoint contract: params, batch_stats
-        and opt_state (optimizer + lr-schedule position)."""
+        and opt_state (optimizer, lr-schedule position and, between the
+        micro-batches of one update, the gradients accumulated so far)."""
         st = self.state
-        buffers = dict(st.model.named_buffers())
+        acc = ({k: p.grad.detach().clone()
+                for k, p in st.model.named_parameters()
+                if p.grad is not None} if st.micro else {})
         return {"params": {k: v.detach()
                            for k, v in st.model.named_parameters()},
-                "batch_stats": buffers,
+                "batch_stats": dict(st.model.named_buffers()),
                 "opt_state": {"optimizer": st.optimizer.state_dict(),
                               "scheduler": st.scheduler.state_dict(),
-                              "step": st.step}}
+                              "step": st.step, "micro": st.micro,
+                              "acc_grads": acc}}
 
     def restore_payload(self, payload: dict) -> None:
         st = self.state
@@ -186,6 +285,11 @@ class ClassifierTrainer:
         st.optimizer.load_state_dict(opt_state["optimizer"])
         st.scheduler.load_state_dict(opt_state["scheduler"])
         st.step = int(opt_state["step"])
+        st.micro = int(opt_state.get("micro", 0))
+        acc = opt_state.get("acc_grads", {})
+        for k, p in st.model.named_parameters():
+            p.grad = (acc[k].to(p.device) if st.micro and k in acc
+                      else None)
 
     # ------------------------------------------------------------------
     def put_batch(self, images, level_labels, multihot):

@@ -1,1 +1,2 @@
-"""Plots: the 2-D toy embedding (``toy.py``)."""
+"""Plots: the 2-D toy embedding (``toy.py``) and the bottleneck2d
+head's label vectors (``contours.py``)."""

@@ -216,11 +216,12 @@ def test_cuda_is_never_replaced_by_the_cpu():
 
 
 @pytest.mark.parametrize("bad", [dict(bn_impl="flax"),
-                                 dict(criterion="masked_ce")])
+                                 dict(backbone="vgg11_bn")])
 def test_unported_options_raise(bad):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ClassifierTrainer(toy_labelmap(2, 2), ClassifierConfig(
-            backbone="resnet18", image_size=32, device="cpu", **bad))
+        ClassifierTrainer(toy_labelmap(2, 2), ClassifierConfig(**{
+            "backbone": "resnet18", "image_size": 32, "device": "cpu",
+            **bad}))
 
 
 def test_entry_forward_on_butterfly200(monkeypatch):

@@ -367,7 +367,7 @@ def test_oe_use_cnn_order_energy(png_split, exp_dir, native_cpu_convs):
 
 def test_joint_main_fc7_path_is_not_ported(png_split, tmp_path):
     data, images = png_split
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 7"):
         t_oe_h.main(["--data_dir", data, "--image_dir", images,
                      "--n_epochs", "1", "--set_mode", "train",
                      "--experiment_dir", str(tmp_path),

@@ -203,3 +203,54 @@ def test_label_only_epoch_on_the_card(gen):
             got, ref = k3.pairwise_order(emb, emb), \
                 k3.pairwise_order_plain(emb, emb)
             assert bool(((got - ref).abs() <= 1e-5 * ref + 1e-6).all())
+
+
+def test_classifier_runner_on_the_card(gen, tmp_path):
+    """run_classifier on the card (ResNet-18 at 32², an in-memory split,
+    grad_accum 2, then --resume): 20 + 20 BN launches in every train step,
+    none in the eval steps, and the checkpoints load back to the card."""
+    import json
+    import os
+
+    from learning_embeddings_tpu_torch.data.records import (
+        multihot_from_level_labels)
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig)
+    from learning_embeddings_tpu_torch.train.runner import run_classifier
+
+    lm = toy_labelmap(2, 3)
+    rng = np.random.RandomState(0)
+
+    class InMemory:
+        def __init__(self, n):
+            self.images = rng.randint(0, 256, (n, 40, 40, 3)).astype(
+                np.uint8)
+            self.level_labels = lm.leaf_paths()[rng.randint(
+                0, lm.levels[-1], n)].astype(np.int32)
+            self.leaf_labels = self.level_labels[:, -1].copy()
+
+        def __len__(self):
+            return len(self.images)
+
+        def multihot(self, labelmap):
+            return multihot_from_level_labels(self.level_labels, labelmap)
+
+    datasets = {"train": InMemory(32), "val": InMemory(12),
+                "test": InMemory(12)}
+    cfg = ClassifierConfig(backbone="resnet18", image_size=32, batch_size=8,
+                           lr=1e-4, grad_accum=2)
+    kw = dict(experiment_dir=str(tmp_path), experiment_name="c",
+              n_workers=2)
+    before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES)
+    run_classifier(lm, datasets, "", cfg, n_epochs=2, **kw)
+    torch.cuda.synchronize()
+    assert (bn_triton.STATS_LAUNCHES - before[0],
+            bn_triton.CORR_LAUNCHES - before[1]) == (2 * 4 * 20, 2 * 4 * 20)
+    res = run_classifier(lm, datasets, "", cfg, n_epochs=3, resume=True,
+                         **kw)
+    assert all(np.isfinite(v) for v in res["test_metrics"].values())
+    with open(os.path.join(str(tmp_path), "c", "logs", "metrics.jsonl")) as f:
+        steps = [json.loads(line)["step"] for line in f
+                 if '"train/loss"' in line]
+    assert steps == [0, 1, 2]

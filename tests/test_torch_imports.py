@@ -1,6 +1,7 @@
 """The port, chip_smoke.py, k3_variants.py and onednn_dw_repro.py import
 neither JAX nor the JAX package, the port imports triton only inside functions (the CUDA path), and its CPU path
-never builds or loads the CUDA kernel library."""
+never builds or loads the CUDA kernel library. The port needs no sklearn
+(its PR curves and AP are numpy)."""
 
 import ast
 import pathlib
@@ -48,7 +49,12 @@ def test_port_has_the_slice_modules():
                 "viz/toy.py", "cli/__init__.py", "cli/common.py",
                 "cli/order_embeddings.py", "cli/order_embeddings_h.py",
                 "cli/embed_toy.py", "cli/validate_embedding.py",
-                "cli/_joint_main.py", "cli/oe.py", "cli/oe_h.py"]:
+                "cli/_joint_main.py", "cli/oe.py", "cli/oe_h.py",
+                # slice 6
+                "eval/multilabel.py", "eval/reports.py",
+                "data/sampling.py", "utils/__init__.py",
+                "utils/profiling.py", "viz/contours.py",
+                "cli/ethec_experiments.py", "cli/image_emb.py"]:
         assert (PORT / rel).is_file(), rel
     assert (ROOT / "chip_smoke.py").is_file()
 
@@ -59,6 +65,14 @@ def test_no_jax_imports(path):
     for name, node in _imports(tree):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, (
+            f"{path.name}:{node.lineno} imports {name}")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_sklearn_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name, node in _imports(tree):
+        assert name.split(".")[0] != "sklearn", (
             f"{path.name}:{node.lineno} imports {name}")
 
 
