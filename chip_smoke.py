@@ -102,6 +102,25 @@ and prints no result line):
             into data wait, steps, eval and checkpoints, images/s, peak
             memory, the profile's top ops and one checkpoint's save, load
             and size.
+11. slice 7 the fc7 joint trainer (JointEmbeddingTrainer: FeatNet on
+            precomputed 2048-wide features, negatives drawn on the card):
+            (a) 3 train_steps on given negatives of hyp_cone + adam,
+            hyp_cone + rsgd and order + adam on the card against the CPU;
+            (b) JointTrainerConfig's defaults (hyp_cone + adam, dim 10,
+            batch 10, ratio 5) on the taxonomy with a train graph of
+            37,643 synthetic images (ETHEC's train split) over every leaf,
+            308 MB of f32 features on the card: 2 warm-up and 500 timed
+            train_batch steps, a profile of 5 (idle share), peak memory
+            and the epoch time the step implies; (c) one train_epoch of
+            each of the three runs on a 2048-image graph, each followed by
+            the runner's eval on 5286- and 5049-row feature splits (K3
+            three times, on exact_d, in the order run's eval and held
+            against the plain version; none in the hyperbolic ones, whose
+            label rows stay in the annulus); (d) run_joint_embedding, 2
+            epochs then resume=True to 3, warm-started from phase 7's
+            hyperbolic best_model, with one checkpoint's size, save and
+            load; (e) cli/oe_h.py and cli/oe.py without --use_CNN for one
+            epoch on the {split}.npz features phase 10's image_emb wrote.
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last is {"ok": true, "device": {...}}. A `kernels` JSON line and the
@@ -110,6 +129,7 @@ chiprun_out/chip_smoke.json.
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -1923,6 +1943,451 @@ def classifier_cli_phase(labelmap, n_train=1024, n_val=256, n_test=256,
 
 
 # --------------------------------------------------------------------------
+# phase 11: slice 7, the fc7 joint trainer
+# --------------------------------------------------------------------------
+#: train images of the ETHEC split (47,978 − 5,286 val − 5,049 test): the
+#: full-width fc7 graph's image count
+ETHEC_TRAIN_IMAGES = 37643
+FC7_DIM = 2048
+#: (energy, label optimizer) of the fc7 runs
+FC7_RUNS = (("hyp_cone", "adam"), ("hyp_cone", "rsgd"), ("order", "adam"))
+
+
+def _fc7_graph(labelmap, n_images, seed=0):
+    """(graph, train edges) of `n_images` synthetic images over every leaf
+    in turn."""
+    import numpy as np
+
+    from learning_embeddings_tpu_torch.losses.joint_sampling import (
+        build_joint_graph)
+
+    leaves = np.arange(n_images) % labelmap.levels[-1]
+    np.random.RandomState(seed).shuffle(leaves)
+    return build_joint_graph(labelmap, labelmap.leaf_paths()[leaves])
+
+
+def _fc7_features(n, gen):
+    """(n, 2048) f32 on the card, uniform in [0, 1): non-negative, as the
+    pooled ReLU features of a ResNet-50 trunk are."""
+    import torch
+
+    return torch.rand((n, FC7_DIM), generator=gen, device=DEV)
+
+
+def _fc7_cfg(energy, opt, **kw):
+    """JointTrainerConfig's defaults (dim 10, batch 10, ratio 5, alpha
+    0.05, pick_per_level, lr 1e-2 / 1e-3) with `energy` and `opt`."""
+    from learning_embeddings_tpu_torch.train.joint import JointTrainerConfig
+
+    return JointTrainerConfig(energy=energy, optimizer_labels=opt,
+                              feature_dim=FC7_DIM, device=DEV, **kw)
+
+
+def fc7_small_phase(steps=3):
+    """(a) a few train_steps on given negatives (drawn on the CPU) of each
+    fc7 run at feature_dim 2048 on the card and on the CPU from the same
+    seed: the loss (rel 1e-5), the label table and FeatNet (abs 1e-5) after
+    every step, the step's energies (|Δ| ≤ 1e-5 + 1e-5·|E|); full f32
+    matmuls on the card for the check."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.train.joint import (
+        JointEmbeddingTrainer)
+
+    lm = toy_labelmap(3, 3)
+    graph, edges = _fc7_graph(lm, 300)
+    feats = np.random.RandomState(1).rand(300, FC7_DIM).astype(np.float32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for energy, opt in FC7_RUNS:
+            tr = {dev: JointEmbeddingTrainer(
+                lm, graph, edges, feats,
+                dataclasses.replace(_fc7_cfg(energy, opt), device=dev))
+                for dev in ("cpu", DEV)}
+            sampler = tr["cpu"]._stage(())[1]
+            gen = torch.Generator().manual_seed(0)
+            errs = {"loss": 0.0, "params": 0.0, "energies": 0.0}
+            for s in range(steps):
+                e = torch.as_tensor(edges[s::steps][:10]).long()
+                neg = sampler(gen, e[:, 0], e[:, 1])
+                res = {dev: [x.cpu() for x in t.train_step(
+                    e[:, 0], e[:, 1], *neg)] for dev, t in tr.items()}
+                card, cpu = res[DEV], res["cpu"]   # loss, e_pos, e_neg
+                errs["loss"] = max(errs["loss"], abs(float(
+                    card[0] - cpu[0])) / abs(float(cpu[0])))
+                errs["energies"] = max(errs["energies"], *(
+                    ((a - b).abs() - 1e-5 * b.abs()).max().item()
+                    for a, b in zip(card[1:], cpu[1:])))
+                for name in ("embedder", "featnet"):
+                    for v, w in zip(
+                            getattr(tr["cpu"], name).state_dict().values(),
+                            getattr(tr[DEV], name).state_dict().values()):
+                        errs["params"] = max(errs["params"], (
+                            w.cpu() - v).abs().max().item())
+            limits = {"loss": 1e-5, "params": 1e-5, "energies": 1e-5}
+            bad = {k: v for k, v in errs.items() if not v <= limits[k]}
+            if bad:
+                raise AssertionError(f"fc7 steps {energy} + {opt}: card and "
+                                     f"CPU disagree on {bad} ({limits})")
+            out[f"{energy}_{opt}"] = errs
+            log(f"[fc7] {steps} steps {energy} + {opt} at feature_dim "
+                f"{FC7_DIM}: card against CPU {errs} within {limits}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return out
+
+
+def fc7_step_phase(labelmap, n_images=ETHEC_TRAIN_IMAGES, steps=500,
+                   warmup=2, profiled=5):
+    """(b) the fc7 step at full width: JointTrainerConfig's defaults
+    (hyp_cone, the hybrid Adam) on `labelmap`'s taxonomy with a train
+    graph of `n_images` synthetic images over every leaf, 2048-wide f32
+    features on the card; `warmup` then `steps` timed train_batch calls
+    (negatives drawn on the card), waiting once at the end; the profiler's
+    view of `profiled` steps; peak memory; the epoch time the step time
+    implies for this graph."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.train.joint import (
+        JointEmbeddingTrainer)
+
+    # the phase's own memory: its peak above what earlier phases hold
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    graph, edges = _fc7_graph(labelmap, n_images)
+    feats = _fc7_features(n_images, gen)
+    cfg = _fc7_cfg("hyp_cone", "adam")
+    _reset_counts()
+    trainer = JointEmbeddingTrainer(labelmap, graph, edges, feats, cfg)
+    bs = cfg.batch_size
+    order = edges[np.random.RandomState(0).permutation(len(edges))]
+    n = warmup + steps + profiled
+    e = trainer._ids(np.resize(order, (n * bs, 2)).reshape(n, bs, 2))
+    losses = [trainer.train_batch(e[i, :, 0], e[i, :, 1])[0]
+              for i in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        losses.append(trainer.train_batch(e[i, :, 0], e[i, :, 1])[0])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    losses = [float(x) for x in torch.stack(losses).cpu()]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"fc7 step: non-finite losses {losses[:8]}")
+    if any(launches.values()):
+        raise AssertionError(f"fc7 step launched {launches}, expected no "
+                             f"kernel of the port")
+    first = warmup + steps
+
+    def some_steps():
+        for i in range(first, first + profiled):
+            trainer.train_batch(e[i, :, 0], e[i, :, 1])
+
+    prof = profile_phase(some_steps, "fc7 step")
+    steps_per_epoch = len(edges) // bs
+    ms = 1e3 * seconds / steps
+    out = {"n_images": n_images, "n_labels": graph.n_labels,
+           "train_edges": int(len(edges)),
+           "features_bytes": int(feats.numel() * 4),
+           "steps_timed": steps, "ms_per_step": ms,
+           "steps_per_s": steps / seconds,
+           "steps_per_epoch": steps_per_epoch,
+           "implied_epoch_s": steps_per_epoch * ms / 1e3,
+           "peak_memory_above_before_gib": peak,
+           "memory_allocated_before_gib": before / 2**30,
+           "profiled_steps": profiled,
+           "profile_wall_ms_per_step": prof["wall_ms"] / profiled,
+           "profile_device_busy_ms_per_step":
+               prof["device_busy_ms"] / profiled,
+           "device_entries_per_step": prof["device_entries"] / profiled,
+           "idle_share": prof["idle_share"],
+           "losses_first_last": [losses[0], losses[-1]],
+           "launches": launches}
+    log(f"[fc7] full-width step (hyp_cone + adam, {n_images} images, "
+        f"{graph.n_labels} labels, {len(edges)} train edges, features "
+        f"{out['features_bytes'] / 1e6:.1f} MB): {ms:.3f} ms/step, "
+        f"{out['steps_per_s']:.1f} steps/s over {steps} steps; an epoch of "
+        f"{steps_per_epoch} steps would take {out['implied_epoch_s']:.1f} "
+        f"s; profiled {profiled} steps: {out['device_entries_per_step']:.0f}"
+        f" device entries a step, idle share {prof['idle_share']}; peak "
+        f"{peak:.3f} GiB above the {before / 2**30:.3f} GiB held before")
+    return trainer, out
+
+
+def _fc7_eval(trainer, splits):
+    """The runner's eval sequence: val ranking and edge metrics (the
+    threshold), reconstruction, test ranking and edge metrics at it;
+    returns (metrics, seconds per stage)."""
+    import torch
+
+    sec, m = {}, {}
+    for split in ("val", "test"):
+        paths, feats = splits[split]
+        t0 = time.perf_counter()
+        m[split] = trainer.classification_metrics(paths, feats)
+        sec[f"ranking_{split}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        th = trainer.optimal_threshold if split == "test" else None
+        m[f"{split}_edge"] = trainer.edge_metrics(paths, feats, threshold=th)
+        if split == "val":
+            trainer.optimal_threshold = float(m["val_edge"].threshold)
+        sec[f"edge_{split}_s"] = time.perf_counter() - t0
+        if split == "val":
+            t0 = time.perf_counter()
+            m["reconstruction"] = trainer.reconstruction()
+            torch.cuda.synchronize()
+            sec["reconstruction_s"] = time.perf_counter() - t0
+    return m, sec
+
+
+def fc7_epoch_phase(labelmap, n_images=2048, n_val=VAL_IMAGES,
+                    n_test=TEST_IMAGES):
+    """(c) one train_epoch of each fc7 run on a graph of `n_images`
+    synthetic images, then the runner's eval on `n_val`- and
+    `n_test`-row synthetic feature splits; each run is a path of its own.
+    The order run's eval launches K3 three times (two rankings, one
+    reconstruction), all on exact_d, and its energies are held against the
+    plain version; the hyperbolic runs launch none and keep their label
+    rows in [r0, 1 − 1e−5]."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.geometry import inner_radius
+    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+    from learning_embeddings_tpu_torch.train.joint import (
+        JointEmbeddingTrainer)
+
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    graph, edges = _fc7_graph(labelmap, n_images)
+    feats = _fc7_features(n_images, gen)
+    rng = np.random.RandomState(1)
+    splits = {"val": (_split_paths(labelmap, n_val, rng),
+                      _fc7_features(n_val, gen)),
+              "test": (_split_paths(labelmap, n_test, rng),
+                       _fc7_features(n_test, gen))}
+    runs, paths = {}, {}
+    for energy, opt in FC7_RUNS:
+        name = f"fc7_epoch_{energy}_{opt}"
+        cfg = _fc7_cfg(energy, opt)
+        _reset_counts()
+        trainer = JointEmbeddingTrainer(labelmap, graph, edges, feats, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = trainer.train_epoch(0, np.random.RandomState(0))
+        epoch_s = time.perf_counter() - t0
+        m, sec = _fc7_eval(trainer, splits)
+        paths[name] = launches = _read_counts()
+
+        scal = [stats["loss"], stats["e_pos_mean"], stats["e_neg_mean"]] + [
+            float(v) for k in ("val_edge", "test_edge", "reconstruction")
+            for v in m[k]] + [m[s]["micro_f1"] for s in ("val", "test")]
+        if not all(map(math.isfinite, scal)):
+            raise AssertionError(f"{name}: non-finite {stats} {m}")
+        if launches["bn_stats"] or launches["bn_corr"]:
+            raise AssertionError(f"{name} launched {launches}")
+        err = annulus = None
+        if energy == "order":
+            _k3_on_exact_d(name, launches, 3)
+            if launches["pairwise_order"] != 3:
+                raise AssertionError(f"{name}: {launches}, expected 3 K3 "
+                                     f"launches (2 rankings, 1 "
+                                     f"reconstruction)")
+            lab = trainer.label_embeddings()
+            img = trainer.image_embeddings(splits["val"][1])
+            err = k3_compare(f"{name} eval energies",
+                             k3.pairwise_order(lab, img),
+                             k3.pairwise_order_plain(lab, img))
+        else:
+            if launches["pairwise_order"]:
+                raise AssertionError(f"{name}: pairwise_order launched "
+                                     f"{launches}, expected none")
+            r0 = inner_radius(trainer.K)
+            annulus = max(
+                _annulus_error(trainer.label_embeddings(), r0),
+                _annulus_error(trainer.embedder.embedding.detach(), r0)
+                if opt != "rsgd" else 0.0)
+            if annulus > ANNULUS_TOL:
+                raise AssertionError(f"{name}: label rows lie {annulus} "
+                                     f"outside the annulus")
+        steps = max(len(edges) // cfg.batch_size, 1)
+        runs[name] = {
+            "energy": energy, "optimizer": opt, "n_images": n_images,
+            "train_edges": int(len(edges)), "steps": steps,
+            "epoch_s": epoch_s, "ms_per_step": 1e3 * epoch_s / steps,
+            "stats": stats, "eval_s": sec, "eval_images": [n_val, n_test],
+            "val_micro_f1": m["val"]["micro_f1"],
+            "test_micro_f1": m["test"]["micro_f1"],
+            "test_hit@1": m["test"]["hit@1"],
+            "val_edge_f1": float(m["val_edge"].f1),
+            "test_edge_f1": float(m["test_edge"].f1),
+            "reconstruction_f1": float(m["reconstruction"].f1),
+            "launches": launches, "eval_energy_max_abs_err": err,
+            "label_annulus_error": annulus}
+        log(f"[fc7] {name}: {steps} steps in {epoch_s:.2f} s "
+            f"({runs[name]['ms_per_step']:.3f} ms/step), loss "
+            f"{stats['loss']:.4g}; eval " + ", ".join(
+                f"{k} {v:.3f}" for k, v in sec.items()) +
+            f"; test micro-F1 {m['test']['micro_f1']:.4f}, edge F1 "
+            f"{float(m['test_edge'].f1):.4f}, reconstruction F1 "
+            f"{float(m['reconstruction'].f1):.4f}; launches {launches}" +
+            ("" if err is None else f"; eval energies kernel vs plain max "
+             f"err {err:.3g}"))
+    return runs, paths
+
+
+def fc7_runner_phase(warm_path, n_images=1024, n_val=1024, n_test=1024,
+                     epochs=2, resume_to=3):
+    """(d) run_joint_embedding at the trainer's defaults (hyp_cone, the
+    hybrid Adam) on Butterfly200 (the taxonomy of phase 7's runs) with a
+    graph of `n_images` synthetic images and held-out splits of
+    `n_val`/`n_test` feature rows, warm-started from phase 7's hyperbolic
+    best_model (its table and threshold): `epochs` epochs, then
+    resume=True to `resume_to`; one checkpoint's size, save and load."""
+    import argparse as _ap
+
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.cli._joint_main import load_warm_start
+    from learning_embeddings_tpu_torch.hierarchy import butterfly200_labelmap
+    from learning_embeddings_tpu_torch.train.experiment import (
+        Checkpointer, ExperimentDir)
+    from learning_embeddings_tpu_torch.train.runner import (
+        run_joint_embedding)
+
+    lm = butterfly200_labelmap()
+    nl = lm.n_classes
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    graph, edges = _fc7_graph(lm, n_images)
+    feats = _fc7_features(n_images, gen)
+    rng = np.random.RandomState(2)
+    eval_paths = {"val": _split_paths(lm, n_val, rng),
+                  "test": _split_paths(lm, n_test, rng)}
+    eval_features = {"val": _fc7_features(n_val, gen),
+                     "test": _fc7_features(n_test, gen)}
+    table, thr = load_warm_start(_ap.Namespace(load_emb_from=warm_path,
+                                               load_cosine_emb=None), nl)
+    if table is None or table.shape != (nl, EMB_DIM) or thr is None:
+        raise AssertionError(f"fc7 warm start from {warm_path}: {thr}")
+    exp_dir = os.path.join(EXPERIMENTS, "fc7")
+    paths, runs = {}, {}
+    for name, kw in (("fc7_runner", dict(n_epochs=epochs,
+                                         init_embeddings=table,
+                                         init_threshold=thr)),
+                     ("fc7_runner_resume", dict(n_epochs=resume_to,
+                                                resume=True))):
+        res, seconds = _run_path(name, lambda: run_joint_embedding(
+            lm, graph, edges, feats, _fc7_cfg("hyp_cone", "adam"),
+            experiment_dir=exp_dir, experiment_name="r",
+            eval_features=eval_features, eval_paths=eval_paths,
+            manifest_args={"phase": name}, **kw), paths)
+        if any(paths[name].values()):
+            raise AssertionError(f"{name} launched {paths[name]}")
+        finals = [res["reconstruction_f1"]] + list(
+            res["test_metrics"].values())
+        if not all(map(math.isfinite, finals)):
+            raise AssertionError(f"{name}: {res['test_metrics']}")
+        runs[name] = {"seconds": seconds, "best_epoch": res["best_epoch"],
+                      "best_val_micro_f1": res["best_val_micro_f1"],
+                      "test_metrics": res["test_metrics"],
+                      "reconstruction_f1": res["reconstruction_f1"],
+                      "threshold": res["trainer"].optimal_threshold}
+    root = os.path.join(exp_dir, "r")
+    metrics = _jsonl(root)
+    if _steps(root, "train/loss") != list(range(resume_to)):
+        raise AssertionError(f"fc7 resume: train epochs "
+                             f"{_steps(root, 'train/loss')}")
+    if runs["fc7_runner_resume"]["best_val_micro_f1"] < runs["fc7_runner"][
+            "best_val_micro_f1"]:
+        raise AssertionError("fc7 resume lost the best val micro-F1")
+    tr = res["trainer"]
+    ckpt = Checkpointer(ExperimentDir(exp_dir, "r"))
+    payload = tr.checkpoint_payload()
+    t0 = time.perf_counter()
+    ckpt.save("timed", payload)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tr.restore_payload(ckpt.load("timed", payload))
+    torch.cuda.synchronize()
+    out = {"runs": runs, "n_images": n_images, "eval_images": [n_val, n_test],
+           "warm_start_threshold": thr,
+           "epoch_s": [r["value"] for r in metrics
+                       if r["tag"] == "epoch_time"],
+           "checkpoint_save_ms": save_ms,
+           "checkpoint_load_ms": 1e3 * (time.perf_counter() - t0),
+           "checkpoint_bytes": os.path.getsize(os.path.join(ckpt.dir,
+                                                            "timed"))}
+    log(f"[fc7] runner: epochs {[round(t, 2) for t in out['epoch_s']]} s; "
+        + "; ".join(f"{k}: {v['seconds']:.1f} s, best epoch "
+                    f"{v['best_epoch']}, val micro-F1 "
+                    f"{v['best_val_micro_f1']:.4f}, test edge F1 "
+                    f"{v['test_metrics'].get('edge_f1', float('nan')):.4f}"
+                    for k, v in runs.items()) +
+        f"; checkpoint {out['checkpoint_bytes']} bytes, save "
+        f"{save_ms:.1f} ms, load {out['checkpoint_load_ms']:.1f} ms")
+    return out, paths
+
+
+def fc7_cli_phase():
+    """(e) cli/oe_h.py (hyp_cone) and cli/oe.py (order) without --use_CNN,
+    1 epoch each at the CLI defaults, on the 2048-wide {split}.npz features
+    that phase 10's image_emb wrote for its records: the reference's
+    two-stage pipeline. The order run's eval launches K3 three times, all
+    on exact_d; the hyperbolic run's none."""
+    from learning_embeddings_tpu_torch.cli import oe, oe_h
+
+    root = os.path.join(EXPERIMENTS, "classifier_data")
+    feats = os.path.join(EXPERIMENTS, "classifier_emb")
+    paths, out = {}, {}
+    for name, main, want in (("cli_oe_h_fc7", oe_h.main, 0),
+                             ("cli_oe_fc7", oe.main, 3)):
+        res, seconds = _run_path(name, lambda: main(
+            ["--data_dir", os.path.join(root, "splits"), "--image_dir",
+             os.path.join(root, "images"), "--features_dir", feats,
+             "--set_mode", "train", "--n_epochs", "1", "--experiment_dir",
+             EXPERIMENTS, "--experiment_name", name, "--device", DEV]),
+            paths)
+        launches = paths[name]
+        if want:
+            _k3_on_exact_d(name, launches, want)
+        if launches["pairwise_order"] != want or launches["bn_stats"] or \
+                launches["bn_corr"]:
+            raise AssertionError(f"{name} launched {launches}, expected "
+                                 f"{want} pairwise_order and no BN")
+        tr = res["trainer"]
+        finals = [res["reconstruction_f1"]] + list(
+            res["test_metrics"].values())
+        if tr.featnet.fc1.in_features != FC7_DIM or \
+                not all(map(math.isfinite, finals)) or \
+                "edge_f1" not in res["test_metrics"]:
+            raise AssertionError(f"{name}: {tr.featnet} "
+                                 f"{res['test_metrics']}")
+        epoch_s = [r["value"] for r in _jsonl(os.path.join(EXPERIMENTS,
+                                                           name))
+                   if r["tag"] == "epoch_time"]
+        out[name] = {"seconds": seconds, "energy": tr.cfg.energy,
+                     "train_images": tr.graph.n_images,
+                     "train_steps": len(tr.train_edges) // tr.cfg.batch_size,
+                     "epoch_s": epoch_s, "test_metrics": res["test_metrics"],
+                     "reconstruction_f1": res["reconstruction_f1"],
+                     "launches": launches}
+        log(f"[fc7] {name}: {seconds:.1f} s ({out[name]['train_steps']} "
+            f"steps on {tr.graph.n_images} images; epoch {epoch_s} s), "
+            f"test micro-F1 {res['test_metrics']['micro_f1']:.4f}, edge F1 "
+            f"{res['test_metrics']['edge_f1']:.4f}; launches {launches}")
+    return out, paths
+
+
+# --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
@@ -1937,8 +2402,8 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
     BN kernels, the joint path for pairwise_order; launches_by_route
     splits the latter by route); launches_by_path gives every kernel's
     count on every path, each counted from 0 over that path's run (the
-    CLIs and runner runs of slices 5 and 6 among them, with
-    pairwise_order's exact_d count beside its total)."""
+    CLIs and runner runs of slices 5 and 6 and the fc7 runs of slice 7
+    among them, with pairwise_order's exact_d count beside its total)."""
     paths = {"classifier": slice_result["launches"],
              "joint_order": joint_result["launches"],
              "joint_hyp_cone": hyp_result["launches"]}
@@ -2066,6 +2531,21 @@ def main(argv=None):
         torch.cuda.empty_cache()
         classifier_cli, classifier_paths = classifier_cli_phase(labelmap)
         cli_paths.update(classifier_paths)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        fc7 = {"small": fc7_small_phase()}
+        ftrainer, fc7["step"] = fc7_step_phase(labelmap)
+        cli_paths["fc7_step"] = fc7["step"]["launches"]
+        del ftrainer
+        torch.cuda.empty_cache()
+        fc7["epochs"], fc7_paths = fc7_epoch_phase(labelmap)
+        cli_paths.update(fc7_paths)
+        fc7["runner"], fc7_paths = fc7_runner_phase(warm)
+        cli_paths.update(fc7_paths)
+        fc7["cli"], fc7_paths = fc7_cli_phase()
+        cli_paths.update(fc7_paths)
+        fc7["seconds"] = time.perf_counter() - t
+        log(f"[fc7] phase took {fc7['seconds']:.1f} s")
     finally:
         shutil.rmtree(EXPERIMENTS, ignore_errors=True)
     kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof,
@@ -2078,7 +2558,7 @@ def main(argv=None):
                "hyp_joint": hyp, "hyp_joint_profile": hprof,
                "label_only": label, "label_cli": cli,
                "joint_runner": runner, "oe_h_cli": oe_h_cli,
-               "classifier_cli": classifier_cli,
+               "classifier_cli": classifier_cli, "fc7": fc7,
                "cli_launches": cli_paths,
                "kernel_shapes": bn_rows, "pairwise_order": k3_result,
                "kernels": kernels,

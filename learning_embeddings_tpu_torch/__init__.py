@@ -22,14 +22,15 @@ csrc       CUDA C++ kernel sources (built with nvcc on first use)
 geometry   entailment energies, all-pairs energies, Poincaré-ball maps
 optim      Riemannian optimizers on the Poincaré ball (torch.optim)
 models     ResNet family (torchvision names), hierarchical heads, the
-           joint trainer's label table and image tower, weight carry-over
-           from the JAX package's trees
-losses     classification losses, margin losses, the joint (host) and
-           label-only (device) negative samplers
+           joint trainers' label table, fc7 projectors and image tower,
+           weight carry-over from the JAX package's trees
+losses     classification losses, margin losses, the joint (host and
+           device) and label-only (device) negative samplers
 eval       threshold sweep, joint ranking metrics, reconstruction
 data       package data, host prefetch
-train      classifier trainer, --use_CNN joint trainer, label-only
-           embedding trainer
+train      classifier trainer, fc7 and --use_CNN joint trainers,
+           label-only embedding trainer, runners
+viz        embedding and 2-d head plots (matplotlib, imported lazily)
 entry      flagship forward and taxonomy (twin of __graft_entry__)
 """
 

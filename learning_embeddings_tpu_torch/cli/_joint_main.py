@@ -1,14 +1,20 @@
 """Shared implementation of the joint image + label CLIs (``oe.py``,
-Euclidean; ``oe_h.py``, hyperbolic): the port of the ``--use_CNN`` path of
+Euclidean; ``oe_h.py``, hyperbolic): the port of
 ``learning_embeddings_tpu/cli/_joint_main.py`` (the same flags, plus
-``--device``). The image tower trains end to end on pixels through
-``train/runner.py::run_joint_cnn``; its BatchNorm reductions are the
-kernels of ``ops/bn_triton.py`` on the card, and with the order energy the
-eval's all-pairs energies are the kernel of ``ops/pairwise_order.py``.
+``--device``). Two paths:
 
-Pixels decode through ``data/pipeline.py`` (cv2, else PIL). Not ported
-yet: the fc7 path without ``--use_CNN`` (slice 7, ROADMAP.md), which
-raises, and the native JPEG loader.
+* the default, fc7: ``FeatNet`` on the ``{split}.npz`` features that
+  ``cli/image_emb.py`` writes (``--features_dir``, default
+  ``<data_dir>/embeddings``), through
+  ``train/runner.py::run_joint_embedding``;
+* ``--use_CNN``: the image tower trains end to end on pixels through
+  ``train/runner.py::run_joint_cnn``; its BatchNorm reductions are the
+  kernels of ``ops/bn_triton.py`` on the card.
+
+With the order energy the eval's all-pairs energies are the kernel of
+``ops/pairwise_order.py`` on both paths. Pixels decode through
+``data/pipeline.py`` (cv2, else PIL); the native JPEG loader is not
+ported yet (ROADMAP.md queue A item 27).
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import numpy as np
 
 from ..losses.joint_sampling import build_joint_graph
 from ..train.experiment import load_checkpoint_file
+from ..train.joint import JointTrainerConfig
+from ..train.runner import run_joint_embedding
 from .common import add_common_flags, load_ethec_data, manifest_from_args
 
 LOSS_MAP = {
@@ -60,9 +68,10 @@ def build_parser(default_energy: str):
     parser.add_argument("--embedding_dim", type=int, default=10)
     parser.add_argument("--neg_to_pos_ratio", type=int, default=5)
     parser.add_argument("--model", type=str, default=None,
-                        help="--use_CNN: the pixel-tower backbone (default "
-                             "resnet18). An explicit value is always "
-                             "respected.")
+                        help="fc7 path: recorded only (features are "
+                             "precomputed; default alexnet). --use_CNN: the "
+                             "pixel-tower backbone (default resnet18). An "
+                             "explicit value is always respected.")
     parser.add_argument("--loss", type=str, default=default_energy)
     parser.add_argument("--loss_variant", type=str, default="margin",
                         choices=("margin", "vendrov", "nll"),
@@ -86,8 +95,9 @@ def build_parser(default_energy: str):
                              "image tower")
     parser.add_argument("--lr_images", type=float, default=1e-3)
     parser.add_argument("--features_dir", type=str, default=None,
-                        help="fc7 path (not ported yet): directory with "
-                             "{split}.npz fc7 features")
+                        help="Directory with {split}.npz fc7 features from "
+                             "the image_emb CLI (default: "
+                             "<data_dir>/embeddings)")
     parser.add_argument("--eval_max_images", type=int, default=None,
                         help="--use_CNN only: cap eval-split embedding work "
                              "at N images (a seeded random subsample, "
@@ -153,14 +163,24 @@ def load_tower_warm_start(args):
     return trunk, trunk_stats
 
 
+def load_features(features_dir: str, split: str, dataset) -> np.ndarray:
+    """fc7 features of `split`, rows aligned with dataset.image_paths:
+    ``image_emb`` writes {paths, features} per split."""
+    path = os.path.join(features_dir, f"{split}.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path} not found — run the image_emb CLI first "
+            f"(fc7 precompute)")
+    blob = np.load(path, allow_pickle=True)
+    by_path = {p: i for i, p in enumerate(blob["paths"])}
+    rows = [by_path[p] for p in dataset.image_paths]
+    return blob["features"][rows].astype(np.float32)
+
+
 def joint_main(args, default_energy: str):
     args = build_parser(default_energy).parse_args(args)
-    if not args.use_CNN:
-        raise NotImplementedError(
-            "the fc7 joint path (without --use_CNN) is not ported yet: "
-            "slice 7 (ROADMAP.md)")
     if args.model is None:   # effective backbone lands in the manifest
-        args.model = "resnet18"
+        args.model = "resnet18" if args.use_CNN else "alexnet"
     labelmap, datasets, _ = load_ethec_data(args.data_dir, args.debug)
     cache = os.path.join(args.data_dir, "joint_graph.npz")
     if args.load_G_from_disk and os.path.exists(cache):
@@ -174,8 +194,65 @@ def joint_main(args, default_energy: str):
             from ..losses.joint_sampling import save_joint_graph
 
             save_joint_graph(cache, graph, train_edges)
-    return _joint_cnn_main(args, labelmap, datasets, graph, train_edges,
-                           default_energy)
+
+    if args.use_CNN:
+        return _joint_cnn_main(args, labelmap, datasets, graph, train_edges,
+                               default_energy)
+    if args.load_tower_from:
+        raise SystemExit("--load_tower_from requires --use_CNN (the fc7 "
+                         "path has no image tower to warm-start)")
+
+    features_dir = args.features_dir or os.path.join(args.data_dir,
+                                                     "embeddings")
+    feats = load_features(features_dir, "train", datasets["train"])
+    eval_features, eval_paths = {}, {}
+    for split in ("val", "test"):
+        if split in datasets:
+            eval_features[split] = load_features(features_dir, split,
+                                                 datasets[split])
+            eval_paths[split] = (datasets[split].level_labels
+                                 + labelmap.level_start[None, :])
+    if args.freeze_weights:
+        # the fc7 features come from a frozen trunk already; FeatNet is the
+        # projection that trains
+        print("--freeze_weights: fc7 features are already frozen; the "
+              "FeatNet projection and label table keep training")
+    init_table, init_threshold = load_warm_start(args, labelmap.n_classes)
+    cfg = JointTrainerConfig(
+        energy=resolve_energy(args.loss, default_energy),
+        embedding_dim=args.embedding_dim,
+        feature_dim=feats.shape[1],
+        lr_labels=args.lr,
+        lr_images=args.lr_images,
+        batch_size=args.batch_size,
+        neg_to_pos_ratio=args.neg_to_pos_ratio,
+        alpha=args.alpha,
+        optimizer_labels=("rsgd" if args.use_rsgd
+                          else "radam" if args.use_radam else "adam"),
+        pick_per_level=args.pick_per_level,
+        hide_levels=args.hide_levels,
+        half_half=args.half_half,
+        loss_variant=args.loss_variant,
+        seed=args.random_seed,
+        device=args.device,
+    )
+    result = run_joint_embedding(
+        labelmap, graph, train_edges, feats, cfg,
+        experiment_dir=args.experiment_dir,
+        experiment_name=args.experiment_name,
+        n_epochs=args.n_epochs,
+        eval_interval=args.eval_interval,
+        eval_features=eval_features,
+        eval_paths=eval_paths,
+        resume=args.resume,
+        manifest_args=manifest_from_args(args),
+        init_embeddings=init_table,
+        init_threshold=init_threshold,
+    )
+    print({k: v for k, v in result.items()
+           if isinstance(v, (int, float, str))})
+    print("test:", result["test_metrics"])
+    return result
 
 
 def _joint_cnn_main(args, labelmap, datasets, graph, train_edges,

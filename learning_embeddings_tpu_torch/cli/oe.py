@@ -1,5 +1,5 @@
 """Joint Euclidean order-embedding CLI: the port of
-``learning_embeddings_tpu/cli/oe.py`` (``--use_CNN`` only)."""
+``learning_embeddings_tpu/cli/oe.py`` (the fc7 path, and ``--use_CNN``)."""
 
 from ._joint_main import joint_main
 

@@ -1,9 +1,16 @@
 """Joint hyperbolic entailment-cone CLI, the paper's method: the port
-of ``learning_embeddings_tpu/cli/oe_h.py`` (``--use_CNN`` only).
+of ``learning_embeddings_tpu/cli/oe_h.py``. The fc7 path reads the
+features that ``cli/image_emb.py`` wrote (``<data_dir>/embeddings`` by
+default):
 
-    python -m learning_embeddings_tpu_torch.cli.oe_h --use_CNN \\
-        --data_dir splits --image_dir images --set_mode train \\
-        --experiment_dir exp --experiment_name joint --n_epochs 2
+    python -m learning_embeddings_tpu_torch.cli.image_emb \\
+        --data_dir splits --image_dir images --output_dir feats
+    python -m learning_embeddings_tpu_torch.cli.oe_h \\
+        --data_dir splits --image_dir images --features_dir feats \\
+        --set_mode train --experiment_dir exp --experiment_name joint \\
+        --n_epochs 2
+
+and ``--use_CNN`` trains the image tower on the pixels instead.
 """
 
 from ._joint_main import joint_main

@@ -12,6 +12,9 @@ floors and clamps, computed in f32:
 
 Denominators are floored at 1e-15 (norms in ``_normalize`` at 1e-12, as
 torch's ``F.normalize``), so only exactly degenerate pairs are affected.
+One difference from the JAX package: norms are taken as sqrt(max(Σx²,
+1e-30)), so that two coincident embeddings (the same image twice) give the
+cone energies a gradient of 0, where the JAX package's is NaN.
 """
 
 from __future__ import annotations
@@ -46,7 +49,12 @@ def order_energy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _norm(x, keepdim=False):
-    return torch.sqrt((x * x).sum(-1, keepdim=keepdim))
+    # the square is floored at 1e-30 (a norm of 1e-15, under every floor
+    # below): a value that only the floors below see, and a gradient of 0
+    # instead of NaN (0 · ∞) where x is 0, as ‖x − y‖ of two coincident
+    # embeddings is (duplicate images)
+    return torch.sqrt(torch.clamp_min((x * x).sum(-1, keepdim=keepdim),
+                                      1e-30))
 
 
 def _normalize(x):

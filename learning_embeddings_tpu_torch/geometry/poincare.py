@@ -16,6 +16,8 @@ All functions work on the last axis and broadcast over the others.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .energies import inner_radius
@@ -85,13 +87,21 @@ def exp_map_x(x: torch.Tensor, v: torch.Tensor, radius_min: float,
     return mobius_add(x, second, radius_min, v_offset=v_offset)
 
 
+@functools.lru_cache(maxsize=None)
+def _arctanh_scalar(r: float, dtype: torch.dtype) -> float:
+    """arctanh(r) computed once on the CPU in `dtype`: a Python number
+    that the device kernels take as an argument, so that no step copies a
+    scalar to the card (a blocking copy)."""
+    return float(arctanh(torch.tensor(r, dtype=dtype)))
+
+
 def exp_map_zero_shifted(x: torch.Tensor, radius_min: float) -> torch.Tensor:
     """tanh(clamp(atanh(r0) + ‖x‖, ±15)) · x̂: maps any vector into the
     ball at norm ≥ r0 (the hyperbolic label table's and image tower's
     post-map in the joint trainer)."""
     x = x + 1e-15
     n = _norm(x)
-    r0_h = arctanh(torch.tensor(radius_min, dtype=x.dtype, device=x.device))
+    r0_h = _arctanh_scalar(float(radius_min), x.dtype)
     scale = torch.tanh(torch.clamp(r0_h + n, -_TANH_CLAMP, _TANH_CLAMP))
     return scale * x / torch.clamp_min(n, 1e-12)
 

@@ -1,7 +1,12 @@
 """Structured negative sampling for the joint (image + label) graph: the
-port's numpy copy of ``learning_embeddings_tpu/losses/joint_sampling.py``
-(lines 52-169, 366-501). The same ``np.random.RandomState`` gives the same
-draws as the JAX package's ``sample_joint_negatives_np``.
+port of ``learning_embeddings_tpu/losses/joint_sampling.py``.
+
+* ``sample_joint_negatives_np`` draws on the host; the same
+  ``np.random.RandomState`` gives the same draws as the JAX package's.
+* ``make_joint_negative_sampler`` (the fc7 trainer's) draws on the device
+  from an explicit ``torch.Generator``: the same candidate sets, pass
+  cycle and slot layout as the JAX sampler, the same distribution (the
+  draws themselves differ).
 
 Facts of the combined graph that make a dense negative adjacency
 unnecessary:
@@ -27,18 +32,18 @@ corrupt 'from' given anchor v (image level L):
 The image-pass type rule follows the ANCHOR (the kept endpoint).
 
 Curriculum ``levels_to_hide`` removes those levels from the pass cycle.
-The fc7 trainer's on-device sampler (``make_joint_negative_sampler``) is not
-ported yet (ROADMAP.md queue A item 15).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["JointGraph", "build_joint_graph", "sample_joint_negatives_np",
-           "save_joint_graph", "load_joint_graph", "filter_stage_edges"]
+__all__ = ["JointGraph", "build_joint_graph", "make_joint_negative_sampler",
+           "sample_joint_negatives_np", "save_joint_graph",
+           "load_joint_graph", "filter_stage_edges"]
 
 
 class JointGraph(NamedTuple):
@@ -159,6 +164,167 @@ def filter_stage_edges(graph: JointGraph, train_edges: np.ndarray,
             f"curriculum stage hiding levels {hidden} leaves no training "
             "edges — fix the schedule")
     return e[keep]
+
+
+def _bounded(generator: torch.Generator, n: torch.Tensor,
+             shape) -> torch.Tensor:
+    """Uniform integers in [0, n) per element (n ≥ 1, broadcast to
+    `shape`): floor(u · n) clamped to n − 1."""
+    u = torch.rand(shape, generator=generator, device=n.device)
+    return torch.minimum((u * n).long(), n - 1)
+
+
+def make_joint_negative_sampler(
+    graph: JointGraph,
+    neg_to_pos_ratio: int,
+    *,
+    pick_per_level: bool = True,
+    levels_to_hide: Sequence[int] = (),
+    device="cpu",
+) -> Callable:
+    """(generator, pos_from, pos_to) -> (neg_from, neg_to), each (B·2R,)
+    int64 on `device`, drawn on the device from `generator`. Slot 2R·i + r
+    keeps pos_from[i] and corrupts 'to'; slot 2R·i + R + r keeps pos_to[i]
+    and corrupts 'from'. Pass r draws at level visible[r % len(visible)]
+    (levels 0..L−1, then L = images, minus `levels_to_hide`); without
+    `pick_per_level` every pass draws from the whole row (labels and
+    images). Build one per curriculum stage.
+
+    On the image pass the corrupted node's type follows the anchor: a
+    label anchor corrupts with an image (for 'to', an image not descended
+    from it, by an O(1) draw over each level's images sorted by their
+    ancestor, where a label's descendants form one run that the draw
+    skips), an image anchor with a label. Raises ValueError when that draw
+    has no candidate: a visible label that is an ancestor of every train
+    image."""
+    nl, ni, L = graph.n_labels, graph.n_images, graph.n_levels
+    R = int(neg_to_pos_ratio)
+    hidden = set(levels_to_hide)
+    visible = [l for l in range(L + 1) if l not in hidden]
+    pass_levels = ([visible[r % len(visible)] for r in range(R)]
+                   if pick_per_level else None)
+    starts = np.asarray(graph.level_start)
+    stops = np.asarray(graph.level_stop)
+    np_paths = np.asarray(graph.image_paths_global)
+
+    # per level, image rows sorted by their ancestor: label u's
+    # descendants are the run [run_start[u], + run_cnt[u]) of that order
+    order = np.zeros((L, ni), np.int64)
+    run_start = np.zeros((L, nl), np.int64)
+    run_cnt = np.zeros((L, nl), np.int64)
+    level_of_label = np.zeros(nl, np.int64)
+    for l in range(L):
+        order[l] = np.argsort(np_paths[:, l], kind="stable")
+        anc = np_paths[order[l], l]
+        labels = np.arange(int(starts[l]), int(stops[l]))
+        lo = np.searchsorted(anc, labels, side="left")
+        run_start[l, labels] = lo
+        run_cnt[l, labels] = np.searchsorted(anc, labels, side="right") - lo
+        level_of_label[labels] = l
+    if pass_levels is not None and L in pass_levels:
+        # a visible label every image descends from has no image to
+        # corrupt with (the clamped draw would return a positive); hidden
+        # labels never anchor a draw (their edges are filtered out)
+        empty = run_cnt == ni
+        for l in hidden:
+            if 0 <= l < L:
+                empty[:, int(starts[l]):int(stops[l])] = False
+        if empty.any():
+            bad = [int(u) for u in np.nonzero(empty.any(0))[0]]
+            raise ValueError(
+                f"labels {bad} are ancestors of EVERY train image — the "
+                "image-level negative pass has no candidates for them; "
+                "hide that level or drop pick_per_level")
+
+    def put(a):
+        return torch.as_tensor(a, device=device)
+
+    closure = put(np.asarray(graph.label_closure, bool))
+    closure_t = closure.T.contiguous()
+    img_paths = put(np_paths.astype(np.int64))
+    img_paths_t = img_paths.T.contiguous()
+    order, run_start, run_cnt, level_of_label = map(
+        put, (order, run_start, run_cnt, level_of_label))
+    n_images = put(np.int64(ni))
+    if pass_levels is not None:
+        ix = np.arange(nl)
+        # the label candidates of each pass beyond the anchor's own: its
+        # level's labels; on the image pass, where an image anchor draws a
+        # label, every label
+        pass_label_mask = put(np.stack([
+            (ix >= starts[l]) & (ix < stops[l]) if l < L
+            else np.ones(nl, bool) for l in pass_levels]))     # (R, nl)
+        image_pass = put(np.asarray(pass_levels) == L)       # (R,)
+        any_image_pass = L in pass_levels
+
+    from .margin import masked_uniform_categorical as categorical
+
+    def label_mask_to(u):
+        """(B, nl): labels that are negative successors of u."""
+        u_lab = torch.clamp_max(u, nl - 1)
+        m = (~closure[u_lab]).scatter_(1, u_lab[:, None], False)
+        return m | (u >= nl)[:, None]   # an image has no successor
+
+    def label_mask_from(v):
+        """(B, nl): labels that are negative predecessors of v."""
+        v_lab = torch.clamp_max(v, nl - 1)
+        anc_label = closure_t[v_lab].scatter_(1, v_lab[:, None], True)
+        anc_img = torch.zeros_like(anc_label).scatter_(
+            1, img_paths[torch.clamp_min(v - nl, 0)], True)
+        return ~torch.where((v >= nl)[:, None], anc_img, anc_label)
+
+    def image_not_descended(generator, u):
+        """(B, R) uniform image rows not descended from labels u."""
+        u_lab = torch.clamp_max(u, nl - 1)
+        lvl = level_of_label[u_lab]
+        start = run_start[lvl, u_lab][:, None]
+        cnt = run_cnt[lvl, u_lab][:, None]
+        j = _bounded(generator, torch.clamp_min(ni - cnt, 1),
+                     (u.shape[0], R))
+        j = j + torch.where(j >= start, cnt, 0)
+        return order[lvl[:, None], torch.clamp_max(j, ni - 1)]
+
+    def side(generator, anchors, corrupt_to: bool):
+        """(B, R) corrupted node ids for one side."""
+        B = anchors.shape[0]
+        lab_mask = (label_mask_to if corrupt_to else label_mask_from)(
+            anchors)
+        is_image = anchors >= nl
+        if pass_levels is None:
+            # unrestricted: labels and images in one row
+            self_col = torch.zeros((B, ni), dtype=torch.bool,
+                                   device=anchors.device).scatter_(
+                1, torch.clamp_min(anchors - nl, 0)[:, None], True) \
+                & is_image[:, None]
+            if corrupt_to:
+                u_lab = torch.clamp_max(anchors, nl - 1)
+                not_desc = img_paths_t[level_of_label[u_lab]] \
+                    != u_lab[:, None]
+                img_mask = torch.where(is_image[:, None], ~self_col,
+                                       not_desc)
+            else:
+                img_mask = ~self_col   # images are nobody's successor
+            full = torch.cat([lab_mask, img_mask], 1)
+            return categorical(generator, full[:, None].expand(B, R, -1))
+        cols = categorical(generator,
+                           lab_mask[:, None] & pass_label_mask[None])
+        if any_image_pass:
+            img_pick = nl + (image_not_descended(generator, anchors)
+                             if corrupt_to else
+                             _bounded(generator, n_images, (B, R)))
+            cols = torch.where(image_pass[None] & ~is_image[:, None],
+                               img_pick, cols)
+        return cols
+
+    def sample(generator, pos_from, pos_to):
+        B = pos_from.shape[0]
+        corrupted_to = side(generator, pos_from, corrupt_to=True)
+        corrupted_from = side(generator, pos_to, corrupt_to=False)
+        nf = torch.cat([pos_from[:, None].expand(B, R), corrupted_from], 1)
+        nt = torch.cat([corrupted_to, pos_to[:, None].expand(B, R)], 1)
+        return nf.reshape(-1), nt.reshape(-1)
+
+    return sample
 
 
 def sample_joint_negatives_np(

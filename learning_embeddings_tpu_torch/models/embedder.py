@@ -1,5 +1,5 @@
-"""Label-embedding table and the end-to-end image tower: the port of
-``learning_embeddings_tpu/models/embedder.py`` (lines 44-89, 129-153).
+"""Label-embedding table and the image-embedding nets: the port of
+``learning_embeddings_tpu/models/embedder.py``.
 
 * ``geometry_map``  the per-mode post-map of raw embedding vectors:
   ``euclidean`` (identity, order embeddings), ``euc_cone`` (radial shift
@@ -10,11 +10,16 @@
 * ``LabelEmbedder`` a table (``embedding``, from an explicit generator:
   ``hyperbolic_init`` in the hyperbolic modes, else N(0, 1)) + the
   geometry map.
+* ``FeatNet``       the fc7 path's image projector: ``nn.Linear(
+  feature_dim, dim)`` named ``fc1`` (flax's initialisers, from an explicit
+  generator) → geometry map; under ``hyp_cone_exp0`` the exp₀ squash and
+  the annulus clip.
+* ``MatrixApproximation``  a low-parameter projector
+  x[..., :dim]·diag + (x·v)·u (parameters ``diag`` = 1, ``u`` and ``v`` ~
+  N(0, 0.01²)) → geometry map.
 * ``FeatCNN``       ResNet trunk (``trunk``) → ``nn.Linear(feature_dim,
   dim)`` named ``fc`` in f32 → geometry map. It takes NCHW images in
   channels_last memory, as ``HierarchicalCNN`` does.
-
-``FeatNet`` and ``MatrixApproximation`` (the fc7 path) are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,10 +30,10 @@ import torch
 from torch import nn
 
 from ..geometry import exp_map_zero_shifted, inner_radius, project_annulus
-from .resnet import BACKBONES
+from .resnet import BACKBONES, init_params_
 
-__all__ = ["LabelEmbedder", "FeatCNN", "geometry_map", "hyperbolic_init",
-           "MODES"]
+__all__ = ["LabelEmbedder", "FeatNet", "MatrixApproximation", "FeatCNN",
+           "geometry_map", "hyperbolic_init", "MODES"]
 
 MODES = ("euclidean", "euc_cone", "hyp_cone", "hyp_cone_exp0")
 _HYPERBOLIC = ("hyp_cone", "hyp_cone_exp0")
@@ -85,6 +90,46 @@ class LabelEmbedder(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return geometry_map(self.embedding[ids], self.mode, self.K)
+
+
+class FeatNet(nn.Module):
+    """Image-feature projector fc7 (feature_dim) → dim with the geometry
+    post-map."""
+
+    def __init__(self, feature_dim: int, dim: int, mode: str = "euclidean",
+                 K: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_mode(mode)
+        self.mode, self.K = mode, K
+        self.fc1 = nn.Linear(feature_dim, dim)
+        init_params_(self, generator)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        return geometry_map(self.fc1(feats), self.mode, self.K)
+
+
+class MatrixApproximation(nn.Module):
+    """Image projector W = pad(diag(d)) + u·vᵀ: a diagonal map of the first
+    `dim` feature coordinates plus a rank-1 correction over the whole
+    feature vector, then the geometry post-map."""
+
+    def __init__(self, feature_dim: int, dim: int, mode: str = "euclidean",
+                 K: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_mode(mode)
+        self.mode, self.K = mode, K
+        self.diag = nn.Parameter(torch.ones(dim))
+        self.u = nn.Parameter(0.01 * torch.randn(dim, generator=generator))
+        self.v = nn.Parameter(0.01 * torch.randn(feature_dim,
+                                                 generator=generator))
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        dim = self.diag.shape[0]
+        x = feats[..., :dim] * self.diag + (feats @ self.v)[..., None] \
+            * self.u
+        return geometry_map(x, self.mode, self.K)
 
 
 class FeatCNN(nn.Module):

@@ -5,7 +5,9 @@ The port's own copy of the name and layout mapping of the JAX package's
 extended to a whole trunk + head model: the ``HierarchicalCNN``
 classifier (any head: ``fc``, or ``bottleneck`` and ``level_fc{l}``) and
 the joint trainer's ``FeatCNN`` image tower, whose flax trees have
-{"trunk", head Dense layers} params and {"trunk"} batch_stats:
+{"trunk", head Dense layers} params and {"trunk"} batch_stats; and to the
+label table and the fc7 path's image projectors (``FeatNet``: Dense
+``fc1``; ``MatrixApproximation``: ``diag``, ``u``, ``v`` as they are):
 
   conv kernel   HWIO → OIHW          Dense kernel (in, out) → weight (out, in)
   BN scale/bias/mean/var → weight/bias/running_mean/running_var
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax", "label_table_from_jax",
-           "label_table_from_jax_checkpoint"]
+           "label_table_from_jax_checkpoint", "feat_net_from_jax"]
 
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
@@ -76,6 +78,21 @@ def label_table_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     ``LabelEmbedder``'s variables ({"params": {"embedding": (n, d)}})."""
     return {"embedding": torch.from_numpy(np.array(
         variables["params"]["embedding"], dtype=np.float32))}
+
+
+def feat_net_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for the port's ``FeatNet`` (JAX params {"fc1": {kernel
+    (in, out), bias}}) or ``MatrixApproximation`` (params {diag, u, v})
+    from the JAX module's variables."""
+    p = variables["params"]
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    if "fc1" in p:
+        return {"fc1.weight": t(np.asarray(p["fc1"]["kernel"]).T),
+                "fc1.bias": t(p["fc1"]["bias"])}
+    return {k: t(p[k]) for k in ("diag", "u", "v")}
 
 
 def label_table_from_jax_checkpoint(

@@ -53,11 +53,10 @@ from ..losses.margin import variant_loss
 from ..models.embedder import FeatCNN, LabelEmbedder
 from ..models.resnet import init_params_
 from ..ops.image import device_scale
-from ..optim import (RiemannianAdam, RiemannianSGD, project_annulus_,
-                     scale_by_conformal_factor_)
 from .classifier import resolve_device
 from .joint import (DEFAULT_CURRICULUM, DEFAULT_K, JOINT_MODE,
-                    curriculum_levels_for_epoch, epoch_edge_order,
+                    JointOptimization, check_joint_options,
+                    curriculum_levels_for_epoch, detached, epoch_edge_order,
                     joint_edge_metrics, load_label_table)
 
 __all__ = ["JointCNNConfig", "JointCNNTrainer"]
@@ -99,7 +98,7 @@ class JointCNNConfig:
     # parameters and optimizer state in place.
 
 
-class JointCNNTrainer:
+class JointCNNTrainer(JointOptimization):
     def __init__(self, labelmap, graph: JointGraph, train_edges: np.ndarray,
                  pixel_loader: Callable[[np.ndarray], np.ndarray],
                  cfg: JointCNNConfig, mesh=None):
@@ -112,16 +111,7 @@ class JointCNNTrainer:
             raise NotImplementedError(
                 "remat and bn_stats_dtype != 'float32' are not ported yet "
                 "(ROADMAP.md queue A item 18)")
-        if cfg.optimizer_labels not in ("adam", "rsgd", "radam"):
-            raise ValueError(
-                f"unknown optimizer_labels {cfg.optimizer_labels!r}")
-        if cfg.optimizer_labels != "adam" and cfg.energy != "hyp_cone":
-            raise ValueError(f"{cfg.optimizer_labels} requires the "
-                             "hyperbolic-cone energy")
-        if cfg.loss_variant == "nll" and cfg.energy != "order":
-            # squared-Euclidean distance is meaningless on cone coordinates
-            raise ValueError("loss_variant='nll' requires the euclidean "
-                             "order energy (--loss order_emb_loss)")
+        check_joint_options(cfg)
         self.labelmap = labelmap
         self.graph = graph
         self.cfg = cfg
@@ -145,26 +135,8 @@ class JointCNNTrainer:
             # feature-extracting tower: only `fc` trains (the JAX
             # package's set_to_zero route for the trunk)
             self.featcnn.trunk.requires_grad_(False)
-        image_params = [p for p in self.featcnn.parameters()
-                        if p.requires_grad]
-        groups = [{"params": image_params, "lr": cfg.lr_images}]
-        label_params = list(self.embedder.parameters())
-        self.label_optimizer = None
-        if cfg.optimizer_labels == "adam":
-            groups.insert(0, {"params": label_params, "lr": cfg.lr_labels})
-        else:
-            ball = (RiemannianSGD if cfg.optimizer_labels == "rsgd"
-                    else RiemannianAdam)
-            self.label_optimizer = ball(label_params, lr=cfg.lr_labels,
-                                        K=self.K)
-        # optax.adam: b1 0.9, b2 0.999, eps 1e-8 outside the square root
-        self.optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999),
-                                          eps=1e-8)
-        self._optimizers = [o for o in (self.optimizer, self.label_optimizer)
-                            if o is not None]
-        hyp = cfg.energy == "hyp_cone"
-        self._conformal = hyp and cfg.optimizer_labels == "adam"
-        self._project = hyp and cfg.optimizer_labels != "rsgd"
+        self._init_optimizers(p for p in self.featcnn.parameters()
+                              if p.requires_grad)
         self._energy_kw = {} if self.K is None else {"K": self.K}
         self._rng = np.random.RandomState(cfg.seed)
         self.optimal_threshold = None
@@ -207,10 +179,10 @@ class JointCNNTrainer:
         """params, batch_stats, opt_state (the Adam's; with rsgd or radam
         also label_opt_state) and optimal_threshold, NaN for none."""
         payload = {
-            "params": {"labels": _detached(self.embedder.state_dict()),
-                       "images": _detached(dict(
+            "params": {"labels": detached(self.embedder.state_dict()),
+                       "images": detached(dict(
                            self.featcnn.named_parameters()))},
-            "batch_stats": _detached(dict(self.featcnn.named_buffers())),
+            "batch_stats": detached(dict(self.featcnn.named_buffers())),
             "opt_state": self.optimizer.state_dict(),
             "optimal_threshold": (
                 float("nan") if self.optimal_threshold is None
@@ -291,15 +263,7 @@ class JointCNNTrainer:
         """Device side of one step. Returns (loss, e_pos, e_neg) as device
         tensors: the caller decides when to wait for them."""
         loss, (e_pos, e_neg) = self._loss(*prepared)
-        for opt in self._optimizers:
-            opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if self._conformal:
-            scale_by_conformal_factor_(self.embedder.parameters())
-        for opt in self._optimizers:
-            opt.step()
-        if self._project:
-            project_annulus_(self.embedder.parameters(), self.K)
+        self._update(loss)
         return loss.detach(), e_pos.detach(), e_neg.detach()
 
     def train_batch(self, pos_from: np.ndarray, pos_to: np.ndarray):
@@ -409,6 +373,3 @@ class JointCNNTrainer:
             self.graph.label_closure[:nl, :nl],
             energy=self.cfg.energy, threshold=threshold, **self._energy_kw)
 
-
-def _detached(tensors):
-    return {k: v.detach() for k, v in tensors.items()}

@@ -1,7 +1,5 @@
 """Experiment runners, the epoch loops behind the CLIs: the port of
-``run_classifier``, ``run_label_embedding``, ``_run_joint_loop`` and
-``run_joint_cnn`` from ``learning_embeddings_tpu/train/runner.py`` (lines
-46-341, 348-552, 612-692), on one device.
+``learning_embeddings_tpu/train/runner.py``, on one device.
 
 * ``run_classifier`` — the ETHEC multi-head CNN classifier: a train pass
   an epoch over the threaded ``ImagePipeline`` in a weighted-resampled or
@@ -11,10 +9,12 @@
 * ``run_label_embedding`` — label-only order/cone embeddings: threshold
   calibration on val, that threshold on test, periodic graph
   reconstruction.
-* ``run_joint_cnn`` — the ``--use_CNN`` joint image + label embeddings
-  through ``_run_joint_loop``: val classification metrics pick the best
-  model, the val edge pass calibrates the threshold, reconstruction and
-  test on the best model.
+* ``run_joint_embedding`` — the fc7 joint image + label embeddings
+  (``JointEmbeddingTrainer`` on precomputed features) and
+* ``run_joint_cnn`` — the ``--use_CNN`` ones, both through
+  ``_run_joint_loop``: val classification metrics pick the best model,
+  the val edge pass calibrates the threshold, reconstruction and test on
+  the best model.
 
 The contract they keep: best-model bookkeeping rides in every checkpoint,
 so --resume continues from the latest numbered checkpoint and keeps
@@ -22,8 +22,7 @@ competing against the original best; the best model (and its threshold)
 is reloaded before the final test; a threshold is never swept on test
 data.
 
-Still to port (ROADMAP.md): the fc7 ``run_joint_embedding``. A mesh other
-than "auto" or None raises: "auto" means one device here.
+A mesh other than "auto" or None raises: "auto" means one device here.
 """
 
 from __future__ import annotations
@@ -38,7 +37,8 @@ import torch
 
 from .experiment import Checkpointer, ExperimentDir, MetricsLogger, write_manifest
 
-__all__ = ["run_classifier", "run_label_embedding", "run_joint_cnn"]
+__all__ = ["run_classifier", "run_label_embedding", "run_joint_embedding",
+           "run_joint_cnn"]
 
 
 def _one_device(mesh) -> None:
@@ -462,7 +462,7 @@ def run_label_embedding(
 
 
 # ---------------------------------------------------------------------------
-# joint embeddings (the loop the --use_CNN path runs)
+# joint embeddings (the loop of the fc7 and --use_CNN paths)
 # ---------------------------------------------------------------------------
 
 def _run_joint_loop(
@@ -543,6 +543,68 @@ def _run_joint_loop(
             "test_metrics": test_metrics,
             "reconstruction_f1": float(rec.f1),
             "trainer": trainer, "experiment": exp}
+
+
+def run_joint_embedding(
+    labelmap,
+    graph,
+    train_edges,
+    features,
+    config,
+    *,
+    experiment_dir: str,
+    experiment_name: str,
+    n_epochs: int,
+    eval_interval: int = 1,
+    eval_features: Optional[Dict[str, np.ndarray]] = None,
+    eval_paths: Optional[Dict[str, np.ndarray]] = None,
+    resume: bool = False,
+    manifest_args: Optional[Dict] = None,
+    mesh=None,
+    init_embeddings: Optional[np.ndarray] = None,
+    init_threshold: Optional[float] = None,
+):
+    """fc7 joint runner. eval_features/eval_paths: per split ('val',
+    'test') fc7 arrays and (n, L) global ancestor paths of held-out
+    images; without them the train images are scored, with no edge pass.
+    init_embeddings/init_threshold: the label table's warm start
+    (--load_emb_from loads both)."""
+    from .joint import JointEmbeddingTrainer
+
+    _one_device(mesh)
+    exp = ExperimentDir(experiment_dir, experiment_name)
+    write_manifest(exp, manifest_args or {})
+    trainer = JointEmbeddingTrainer(labelmap, graph, train_edges, features,
+                                    config)
+    if init_embeddings is not None:
+        trainer.load_embedding_table(init_embeddings)
+    if init_threshold is not None:
+        trainer.optimal_threshold = float(init_threshold)
+    # each split's features go to the device once, not at every eval
+    eval_features = {k: torch.as_tensor(v, dtype=torch.float32)
+                     .to(trainer.device)
+                     for k, v in (eval_features or {}).items()}
+
+    def eval_split(split):
+        if split not in eval_features:
+            # no held-out features: score the train images, no edge pass
+            # (never sweep a threshold on test data)
+            return trainer.classification_metrics(), None
+        m = trainer.classification_metrics(
+            img_paths_global=eval_paths[split],
+            features=eval_features[split])
+        th = trainer.optimal_threshold if split == "test" else None
+        if split == "test" and th is None:
+            return m, None
+        em = trainer.edge_metrics(eval_paths[split], eval_features[split],
+                                  threshold=th)
+        return m, em
+
+    return _run_joint_loop(
+        trainer, eval_split, exp=exp, n_epochs=n_epochs,
+        eval_interval=eval_interval,
+        has_val_edges="val" in eval_features,
+        resume=resume, seed=config.seed)
 
 
 def run_joint_cnn(

@@ -1,2 +1,3 @@
-"""Plots: the 2-D toy embedding (``toy.py``) and the bottleneck2d
-head's label vectors (``contours.py``)."""
+"""Plots: the 2-D toy embedding (``toy.py``), the hierarchy embedding
+with images (``hypernymy.py``) and the bottleneck2d head's analysis
+(``contours.py``)."""

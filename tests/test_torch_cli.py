@@ -14,7 +14,8 @@ ETHEC records (``data/records.py``) on the CPU, against the JAX package.
   reconstruction F1 (within 1e-6: the same table and the same f32 code).
 * ``oe_h --use_CNN`` end to end on a tiny split of PNG images, warm-started
   from a label-only run's best_model (``--load_emb_from``), and ``oe``
-  with the order energy.
+  with the order energy. The fc7 path of these CLIs is tested in
+  tests/test_torch_joint_fc7.py.
 """
 
 import argparse
@@ -363,15 +364,6 @@ def test_oe_use_cnn_order_energy(png_split, exp_dir, native_cpu_convs):
                            "6", "--device", "cpu"])
     assert res["trainer"].cfg.energy == "order"
     assert np.isfinite(res["reconstruction_f1"])
-
-
-def test_joint_main_fc7_path_is_not_ported(png_split, tmp_path):
-    data, images = png_split
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        t_oe_h.main(["--data_dir", data, "--image_dir", images,
-                     "--n_epochs", "1", "--set_mode", "train",
-                     "--experiment_dir", str(tmp_path),
-                     "--experiment_name", "fc7", "--device", "cpu"])
 
 
 def test_load_warm_start_cosine_table(tmp_path):

@@ -16,13 +16,17 @@ import pytest
 
 from learning_embeddings_tpu.train.embedding import (
     EmbeddingTrainerConfig as JaxEmbeddingConfig)
+from learning_embeddings_tpu.train.joint import (
+    JointTrainerConfig as JaxJointTrainerConfig)
 from learning_embeddings_tpu.train.joint_cnn import (
     JointCNNConfig as JaxJointCNNConfig)
 from learning_embeddings_tpu_torch.train.embedding import (
     EmbeddingTrainerConfig)
+from learning_embeddings_tpu_torch.train.joint import JointTrainerConfig
 from learning_embeddings_tpu_torch.train.joint_cnn import JointCNNConfig
 
 PAIRS = {"JointCNNConfig": (JointCNNConfig, JaxJointCNNConfig),
+         "JointTrainerConfig": (JointTrainerConfig, JaxJointTrainerConfig),
          "EmbeddingTrainerConfig": (EmbeddingTrainerConfig,
                                     JaxEmbeddingConfig)}
 
@@ -57,5 +61,6 @@ def test_fields_on_one_side_only(name):
 def test_defaults_that_carry_the_workload():
     # the BASELINE workload's energy, and the label-only trainer's
     assert JointCNNConfig().energy == "hyp_cone"
+    assert JointTrainerConfig().energy == "hyp_cone"
     cfg = EmbeddingTrainerConfig()
     assert (cfg.energy, cfg.optimizer) == ("hyp_cone", "rsgd")

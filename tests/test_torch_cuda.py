@@ -254,3 +254,60 @@ def test_classifier_runner_on_the_card(gen, tmp_path):
         steps = [json.loads(line)["step"] for line in f
                  if '"train/loss"' in line]
     assert steps == [0, 1, 2]
+
+
+def test_fc7_joint_epoch_and_order_eval_on_the_card(gen):
+    """The fc7 joint trainer on the card: a few steps on given negatives
+    equal the CPU path's (loss rel 1e-5, label table and FeatNet abs
+    1e-5), one epoch per energy with device-drawn negatives, and the
+    order energy's eval (two rankings, one reconstruction) launching the
+    exact_d kernel 3 times, equal to the plain version; the hyperbolic
+    eval launches none."""
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.losses.joint_sampling import (
+        build_joint_graph)
+    from learning_embeddings_tpu_torch.train.joint import (
+        JointEmbeddingTrainer, JointTrainerConfig)
+
+    lm = toy_labelmap(3, 3)
+    rng = np.random.RandomState(0)
+    leaves = rng.randint(0, lm.levels[-1], 200)
+    graph, edges = build_joint_graph(lm, lm.leaf_paths()[leaves])
+    feats = (0.05 * rng.randn(200, 64)).astype(np.float32)
+    val = (0.05 * rng.randn(50, 64)).astype(np.float32)
+    val_paths = (lm.leaf_paths()[rng.randint(0, lm.levels[-1], 50)]
+                 + np.asarray(lm.level_start)[None, :])
+    for energy in ("hyp_cone", "order"):
+        cfgs = {dev: JointTrainerConfig(energy=energy, feature_dim=64,
+                                        batch_size=10, seed=0, device=dev)
+                for dev in ("cpu", "cuda")}
+        tr = {dev: JointEmbeddingTrainer(lm, graph, edges, feats, c)
+              for dev, c in cfgs.items()}
+        sampler = tr["cpu"]._stage(())[1]
+        g = torch.Generator().manual_seed(0)
+        for b in range(3):
+            e = torch.as_tensor(edges[10 * b:10 * (b + 1)]).long()
+            nf, nt = sampler(g, e[:, 0], e[:, 1])
+            lp = tr["cpu"].train_step(e[:, 0], e[:, 1], nf, nt)[0]
+            lc = tr["cuda"].train_step(e[:, 0], e[:, 1], nf, nt)[0]
+            assert abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp))
+        for name in ("embedder", "featnet"):
+            for (k, v), w in zip(
+                    getattr(tr["cpu"], name).state_dict().items(),
+                    getattr(tr["cuda"], name).state_dict().values()):
+                assert (w.cpu() - v).abs().max().item() <= 1e-5, (name, k)
+        t = tr["cuda"]
+        stats = t.train_epoch(0, np.random.RandomState(0))
+        assert all(map(np.isfinite, stats.values())), (energy, stats)
+        before = (k3.LAUNCHES, k3.EXACT_D_LAUNCHES)
+        t.classification_metrics()
+        t.classification_metrics(val_paths, val)
+        t.reconstruction()
+        torch.cuda.synchronize()
+        launched = (k3.LAUNCHES - before[0], k3.EXACT_D_LAUNCHES - before[1])
+        assert launched == ((3, 3) if energy == "order" else (0, 0))
+        if energy == "order":
+            lab, img = t.label_embeddings(), t.image_embeddings(val)
+            got, ref = k3.pairwise_order(lab, img), \
+                k3.pairwise_order_plain(lab, img)
+            assert bool(((got - ref).abs() <= 1e-5 * ref + 1e-6).all())

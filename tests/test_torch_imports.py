@@ -54,7 +54,9 @@ def test_port_has_the_slice_modules():
                 "eval/multilabel.py", "eval/reports.py",
                 "data/sampling.py", "utils/__init__.py",
                 "utils/profiling.py", "viz/contours.py",
-                "cli/ethec_experiments.py", "cli/image_emb.py"]:
+                "cli/ethec_experiments.py", "cli/image_emb.py",
+                # slice 7
+                "viz/hypernymy.py"]:
         assert (PORT / rel).is_file(), rel
     assert (ROOT / "chip_smoke.py").is_file()
 
@@ -125,3 +127,20 @@ def test_cpu_path_never_builds_or_loads_the_cuda_library(monkeypatch):
     assert out.shape == (7, 9) and k3._LIB is None
     assert k3.LAUNCHES == before
 
+
+
+def test_plot_modules_import_no_matplotlib():
+    """Importing the plot modules (and the runners that use them) loads no
+    matplotlib: the card's machine has none, and only a plot needs it."""
+    import subprocess
+    import sys
+
+    code = ("import sys; "
+            "import learning_embeddings_tpu_torch.viz.contours, "
+            "learning_embeddings_tpu_torch.viz.hypernymy, "
+            "learning_embeddings_tpu_torch.viz.toy, "
+            "learning_embeddings_tpu_torch.train.runner, "
+            "learning_embeddings_tpu_torch.cli.oe_h; "
+            "assert 'matplotlib' not in sys.modules, 'matplotlib loaded'")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   timeout=300)
