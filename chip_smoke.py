@@ -121,6 +121,30 @@ and prints no result line):
             hyperbolic best_model, with one checkpoint's size, save and
             load; (e) cli/oe_h.py and cli/oe.py without --use_CNN for one
             epoch on the {split}.npz features phase 10's image_emb wrote.
+12. slice 8 inference and reports (cli/inference.py's card functions)
+            on phase 10's experiment (ResNet-50@448, best_model): the
+            rebuild from its manifest, run_tsne (no drawing) over its 256
+            val and 256 test records, the eval forward's images/s and a
+            profile of it, the occlusion maps of 2 test images (225
+            occluded images each, batches of 32), LIME's per-level
+            softmax and coefficients for the same 2 (100 perturbations;
+            SLIC, forward and masks + ridge timed apart), one image's
+            logits on the card against the CPU path (bf16 within
+            5e-2·max|logit|, f32 with TF32 off within 1e-4·max|logit|),
+            cross_level_confusion on its score dumps and
+            read_jsonl_scalars on its metrics. Asserts no BN launch in
+            the whole phase, every shape and finite values; reports the
+            peak memory above what earlier phases hold.
+13. slice 8 cli/fashion_mnist.py and cli/cifar.py --dataset cifar10,
+            --debug on the synthetic stand-in (600 images), 1 epoch each
+            at their defaults (ResNet-18@224, batch 8, multi_level).
+            Asserts 20 + 20 BN launches per train step and none in the
+            eval steps, no channels_last copy (FashionMNIST's 1-channel
+            stem included) and finite losses and metrics; reports ms a
+            step, images/s, the epoch time and its data wait; then the
+            FashionMNIST step alone on a synthetic batch after warm-up
+            (ms, images/s, a profile), and K1 and K2 against their plain
+            versions at the 20 BN shapes of that step (as in phase 2).
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last is {"ok": true, "device": {...}}. A `kernels` JSON line and the
@@ -152,6 +176,10 @@ RESNET50_448_BN = {
     (3136, 128): 7, (3136, 256): 1, (3136, 512): 5, (784, 256): 11,
     (784, 512): 1, (784, 1024): 7, (196, 512): 5, (196, 2048): 4,
 }
+#: per-image (R, C) of the 20 train-mode BatchNorm layers of ResNet-18 at
+#: 224² (the CIFAR / FashionMNIST CLIs' default), layers of each shape
+RESNET18_224_BN = {(12544, 64): 1, (3136, 64): 4, (784, 128): 5,
+                   (196, 256): 5, (49, 512): 5}
 RAGGED = (12345, 100)
 KERNEL_SRC = {"bn_stats": "learning_embeddings_tpu_torch/ops/bn_triton.py",
               "bn_corr": "learning_embeddings_tpu_torch/ops/bn_triton.py",
@@ -334,7 +362,10 @@ def check_reduction(name, kernel_fn, plain_fn, library_fn, R, C, n_in, gen):
     return err, times
 
 
-def kernels_phase(batch):
+def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels"):
+    """K1 and K2 against their plain versions (and timed) at the BN
+    shapes of one train step, `shapes` per image (default ResNet-50@448's)
+    times `batch`, and at the ragged shape."""
     import torch
 
     from learning_embeddings_tpu_torch.ops import bn, bn_triton
@@ -351,7 +382,9 @@ def kernels_phase(batch):
         return x2.view(-1, h, w, x2.shape[1]).permute(0, 3, 1, 2)
 
     rows = []
-    for (R, C), mult in list(RESNET50_448_BN.items()) + [(RAGGED, 0)]:
+    shapes = RESNET50_448_BN if shapes is None else shapes
+    for (R, C), mult in list(shapes.items()) + ([(ragged, 0)] if ragged
+                                                else []):
         Rb = R * batch if mult else R
 
         def lib_stats(x2, R=R):
@@ -375,7 +408,7 @@ def kernels_phase(batch):
             row[name] = {"max_abs_err": err, **times,
                          "bound_ms": bound_ms(Rb, C, n_in)}
         rows.append(row)
-        log(f"[kernels] R={Rb:>8} C={C:>4} x{mult:<2} " + " | ".join(
+        log(f"[{tag}] R={Rb:>8} C={C:>4} x{mult:<2} " + " | ".join(
             f"{n} {row[n]['ms'] * 1e3:7.1f}us (eager "
             f"{row[n]['eager_ms'] * 1e3:6.1f}, plain "
             f"{row[n]['plain_ms'] * 1e3:7.1f}, library "
@@ -2388,10 +2421,338 @@ def fc7_cli_phase():
 
 
 # --------------------------------------------------------------------------
+# phase 12: slice 8, inference and reports on phase 10's experiment
+# --------------------------------------------------------------------------
+def _as_f32(model):
+    """`model` with float32 activations (the trunk and its BatchNorms cast
+    their inputs to their `dtype`)."""
+    import torch
+
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float32
+    return model
+
+
+def inference_phase(n_samples=2, num_perturb=100, n_slic_segments=48,
+                    timed_batches=10):
+    """cli/inference.py's card work on phase 10's classifier experiment
+    (ResNet-50@448, the taxonomy's multi-level head, best_model): the
+    rebuild from the manifest, run_tsne (no drawing) over the val and test
+    splits (batch 32), the eval forward's images/s and a profile of it,
+    the occlusion maps of `n_samples` test images (225 occluded 448²
+    images each, batches of 32) and LIME's per-level softmax and
+    coefficients for the same samples (`num_perturb` perturbations, SLIC
+    and the ridge fit on the host); one sample's logits on the card
+    against the CPU path's (bf16 as run, and f32 with TF32 off); then
+    cross_level_confusion on the experiment's score dumps and
+    read_jsonl_scalars on its metrics. No BN kernel may launch: BatchNorm
+    runs on its running statistics. The drawing functions (matplotlib,
+    sklearn) are not called: the card's machine has neither."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.cli import inference
+    from learning_embeddings_tpu_torch.data import ImagePipeline
+    from learning_embeddings_tpu_torch.eval import cross_level_confusion
+    from learning_embeddings_tpu_torch.utils.tblog import read_jsonl_scalars
+    from learning_embeddings_tpu_torch.viz.lime import slic_segments
+
+    exp_path = os.path.join(EXPERIMENTS, "classifier", "e")
+    image_dir = os.path.join(EXPERIMENTS, "classifier_data", "images")
+    paths, out = {}, {}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def card_work():
+        t0 = time.perf_counter()
+        lm, datasets, trainer, _, _, _ = inference.rebuild_from_manifest(
+            exp_path, DEV)
+        out["rebuild_s"] = time.perf_counter() - t0
+        S = trainer.cfg.image_size
+
+        # t-SNE dumps of every val and test image
+        t0 = time.perf_counter()
+        reps = inference.run_tsne(exp_path, image_dir, render=False,
+                                  device=DEV)
+        out["tsne_s"] = time.perf_counter() - t0
+        width = trainer.model.trunk.feature_dim
+        for split, (F, L) in reps.items():
+            n = len(datasets[split])
+            if F.shape != (n, width) or F.dtype != np.float32 or \
+                    not np.isfinite(F).all() or L.shape != (n, lm.n_levels):
+                raise AssertionError(f"run_tsne {split}: {F.shape} "
+                                     f"{F.dtype} {L.shape}")
+        out["tsne_images"] = {s: len(F) for s, (F, _) in reps.items()}
+
+        # the eval forward alone, on one batch of (up to) 32 decoded test
+        # images
+        nb = min(32, len(datasets["test"]))
+        pipe = ImagePipeline(datasets["test"], lm, image_dir, image_size=S,
+                             batch_size=nb, train=False, num_workers=4)
+        x = torch.as_tensor(next(iter(pipe.batches(np.arange(nb))))[
+            "image"]).to(DEV)
+        inference._trunk_apply(trainer, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed_batches):
+            inference._trunk_apply(trainer, x)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / timed_batches
+        out["forward_batch"] = nb
+        out["forward_ms_per_batch"] = ms
+        out["forward_images_per_s"] = 1e3 * nb / ms
+        out["forward_profile"] = profile_phase(
+            lambda: inference._trunk_apply(trainer, x), "inference")
+
+        # occlusion and LIME on the first test samples
+        pipe1 = ImagePipeline(datasets["test"], lm, image_dir, image_size=S,
+                              batch_size=1, train=False, num_workers=2)
+        samples = list(pipe1.batches(np.arange(n_samples)))
+        slices = inference.level_slices(trainer)
+        if len(slices) != lm.n_levels:
+            raise AssertionError(f"level slices {slices}")
+        grid = len(range(0, S - min(56, S // 4) + 1, min(28, S // 4)))
+        occ_ms = []
+        for b in samples:
+            t0 = time.perf_counter()
+            maps = inference.occlusion_maps(trainer, b["image"],
+                                            b["level_labels"][0], slices)
+            occ_ms.append(1e3 * (time.perf_counter() - t0))
+            if maps.shape != (lm.n_levels, grid, grid) or \
+                    not np.isfinite(maps).all():
+                raise AssertionError(f"occlusion maps {maps.shape}")
+        out["occlusion"] = {"images_per_sample": grid * grid,
+                            "ms_per_sample": occ_ms,
+                            "images_per_s": [1e3 * (grid * grid + 1) / t
+                                             for t in occ_ms]}
+
+        predict = inference.lime_predict(trainer, slices)
+        fwd = [0.0]
+
+        def timed_predict(images):
+            t = time.perf_counter()
+            probs = predict(images)     # numpy: waits for the card
+            fwd[0] += time.perf_counter() - t
+            return probs
+        lime = {"slic_ms": [], "forward_ms": [], "masks_and_ridge_ms": [],
+                "ms_per_sample": []}
+        for b in samples:
+            img = b["image"][0]
+            t0 = time.perf_counter()
+            seg = slic_segments(img, n_segments=n_slic_segments)
+            t1 = time.perf_counter()
+            fwd[0] = 0.0
+            coefs, probs0 = inference.lime_coefficients(
+                timed_predict, img, seg, num_perturb)
+            t2 = time.perf_counter()
+            if coefs.shape != (lm.n_classes, seg.max() + 1) or \
+                    not np.isfinite(coefs).all() or not np.allclose(
+                        [probs0[a:b_].sum() for _, a, b_ in slices], 1.0,
+                        atol=1e-4):
+                raise AssertionError(f"LIME {coefs.shape} {probs0}")
+            lime["slic_ms"].append(1e3 * (t1 - t0))
+            lime["forward_ms"].append(1e3 * fwd[0])
+            lime["masks_and_ridge_ms"].append(1e3 * (t2 - t1 - fwd[0]))
+            lime["ms_per_sample"].append(1e3 * (t2 - t0))
+        out["lime"] = dict(lime, perturbations=num_perturb,
+                           segments=n_slic_segments)
+
+        # one sample's logits, card against CPU, from the same weights
+        cpu = inference.rebuild_from_manifest(exp_path, "cpu")[2]
+        img = samples[0]["image"]
+        cmp = {}
+        prev = torch.backends.cudnn.allow_tf32
+        try:
+            for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-4)):
+                if dtype == "float32":
+                    torch.backends.cudnn.allow_tf32 = False
+                    _as_f32(trainer.model), _as_f32(cpu.model)
+                card = inference.logits_fn(trainer)(img).cpu().numpy()
+                host = inference.logits_fn(cpu)(img).numpy()
+                err = float(np.abs(card - host).max())
+                scale = float(np.abs(host).max())
+                cmp[dtype] = {"max_abs_err": err, "max_abs_logit": scale,
+                              "tolerance": f"{tol} * max|logit|"}
+                if not err <= tol * scale:
+                    raise AssertionError(f"{dtype} logits: card and CPU "
+                                         f"differ by {err} (max |logit| "
+                                         f"{scale}, tolerance {tol}·max)")
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        out["card_vs_cpu_logits"] = cmp
+
+        # the reports of the experiment's dumps and logs
+        stats = os.path.join(exp_path, "stats")
+        scores = np.load(os.path.join(stats, "predicted_scores.npy"))
+        ll = np.load(os.path.join(stats, "correct_labels.npy"))
+        t0 = time.perf_counter()
+        for p, g in ((0, lm.n_levels - 1), (lm.n_levels - 1,
+                                            lm.n_levels - 1), (2, 1)):
+            m, _, _ = cross_level_confusion(scores, ll, lm, p, g)
+            if m.shape != (lm.levels[g], lm.levels[p]) or \
+                    m.sum() != len(scores):
+                raise AssertionError(f"confusion p{p} g{g}: {m.shape}")
+        scalars = read_jsonl_scalars(os.path.join(exp_path, "logs",
+                                                  "metrics.jsonl"))
+        if [s for s, _ in scalars["train/loss"]] != [0, 1, 2]:
+            raise AssertionError(f"metrics.jsonl: {scalars['train/loss']}")
+        out["reports_ms"] = 1e3 * (time.perf_counter() - t0)
+
+    _, seconds = _run_path("inference", card_work, paths)
+    if paths["inference"]["bn_stats"] or paths["inference"]["bn_corr"]:
+        raise AssertionError(f"inference launched {paths['inference']}")
+    out["seconds"] = seconds
+    out["peak_gib_above_held"] = (torch.cuda.max_memory_allocated()
+                                  - held) / 2**30
+    out["launches"] = paths["inference"]
+    prof = out["forward_profile"]
+    log(f"[inference] {seconds:.1f} s: rebuild {out['rebuild_s']:.2f} s, "
+        f"run_tsne {out['tsne_s']:.2f} s ({out['tsne_images']} images); "
+        f"eval forward {out['forward_ms_per_batch']:.2f} ms a batch of "
+        f"{out['forward_batch']} ({out['forward_images_per_s']:.1f} images/s, idle share "
+        f"{prof['idle_share']}); peak "
+        f"{out['peak_gib_above_held']:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held; launches {paths['inference']}")
+    log(f"[inference] occlusion ({out['occlusion']['images_per_sample']} "
+        f"images a sample): "
+        f"{[round(t, 1) for t in out['occlusion']['ms_per_sample']]} ms a "
+        f"sample; LIME ({num_perturb} perturbations): SLIC "
+        f"{[round(t, 1) for t in out['lime']['slic_ms']]} ms (host), "
+        f"forward {[round(t, 1) for t in out['lime']['forward_ms']]} ms "
+        f"(card), masks and ridge "
+        f"{[round(t, 1) for t in out['lime']['masks_and_ridge_ms']]} ms "
+        f"(host); logits card vs CPU {out['card_vs_cpu_logits']}; reports "
+        f"{out['reports_ms']:.1f} ms")
+    return out, paths
+
+
+# --------------------------------------------------------------------------
+# phase 13: slice 8, the CIFAR / FashionMNIST classifier CLIs
+# --------------------------------------------------------------------------
+def other_datasets_phase(image_size=224, batch=8):
+    """cli/fashion_mnist.py and cli/cifar.py --dataset cifar10 through
+    main(argv) at their defaults (ResNet-18, multi_level, Adam lr 1e-3,
+    RandomResizedCrop) with --debug on the synthetic stand-in (no dataset
+    files: 600 images, ~480 of them train), 1 epoch each. Every train step
+    launches 20 + 20 BN kernels (FashionMNIST through the 1-channel stem),
+    no eval step any, and no channels_last copy is made. Then the
+    FashionMNIST step alone (a synthetic batch, after 3 warm-up steps:
+    the epochs include cuDNN's autotuning of each new shape) with a
+    profile, and K1 and K2 against their plain versions at the 20 BN
+    shapes of that step."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.cli import cifar, fashion_mnist
+    from learning_embeddings_tpu_torch.data import workloads
+    from learning_embeddings_tpu_torch.ops import bn
+
+    paths, out = {}, {"runs": {}}
+    n_bn, _ = BACKBONE_BN_FEATURES["resnet18"]
+    for name, main, extra, lm in (
+            ("cli_fashion_mnist", fashion_mnist.main, [],
+             workloads.fmnist_labelmap()),
+            ("cli_cifar10", cifar.main, ["--dataset", "cifar10"],
+             workloads.cifar10_labelmap())):
+        argv = ["--experiment_dir", EXPERIMENTS, "--experiment_name", name,
+                "--debug", "--loss", "multi_level", "--set_mode", "train",
+                "--n_epochs", "1", "--image_size", str(image_size),
+                "--batch_size", str(batch), "--data_root",
+                os.path.join(EXPERIMENTS, "no_dataset"), "--device", DEV,
+                *extra]
+        res, seconds = _run_path(name, lambda: main(argv), paths)
+        copies = bn.CHANNELS_LAST_COPIES
+        launches = paths[name]
+        labels = workloads.synthetic_array_dataset(lm, 600).leaf_labels
+        steps = len(workloads.stratified_index_split(labels)[0]) // batch
+        if res["train_steps"] != steps:
+            raise AssertionError(f"{name}: {res['train_steps']} train "
+                                 f"steps, expected {steps}")
+        for k in ("bn_stats", "bn_corr"):
+            if launches[k] != n_bn * steps:
+                raise AssertionError(f"{name}: {k} launched {launches[k]} "
+                                     f"times in {steps} train steps and "
+                                     f"the evals, expected {n_bn} a step")
+        if copies:
+            raise AssertionError(f"{name}: {copies} channels_last copies")
+        metrics = _jsonl(os.path.join(EXPERIMENTS, name))
+        bad = [r for r in metrics if not math.isfinite(r["value"])]
+        if bad or not all(map(math.isfinite, res["test_metrics"].values())):
+            raise AssertionError(f"{name}: non-finite {bad} "
+                                 f"{res['test_metrics']}")
+
+        def tag(t):
+            return [r["value"] for r in metrics if r["tag"] == t][0]
+        steps_s = tag("epoch_time_train") - tag("epoch_time_data_wait")
+        out["runs"][name] = {
+            "seconds": seconds, "train_steps": steps, "launches": launches,
+            "channels_last_copies": copies,
+            "train_loss": tag("train/loss"),
+            "test_metrics": res["test_metrics"],
+            "epoch_s": tag("epoch_time"),
+            "train_pass_s": tag("epoch_time_train"),
+            "data_wait_s": tag("epoch_time_data_wait"),
+            "eval_s": tag("epoch_time_eval"),
+            "checkpoint_s": tag("epoch_time_checkpoint"),
+            "ms_per_step": 1e3 * steps_s / steps,
+            "images_per_s": steps * batch / steps_s}
+        r = out["runs"][name]
+        log(f"[datasets] {name}: {seconds:.1f} s, {steps} steps "
+            f"({r['ms_per_step']:.2f} ms a step without the data wait, "
+            f"{r['images_per_s']:.1f} images/s), epoch {r['epoch_s']:.2f} "
+            f"s (train pass {r['train_pass_s']:.2f}, data wait "
+            f"{r['data_wait_s']:.2f}, eval {r['eval_s']:.2f}, checkpoints "
+            f"{r['checkpoint_s']:.2f}); loss {r['train_loss']:.4f}, test "
+            f"micro-F1 {res['test_metrics']['micro_f1']:.4f}; launches "
+            f"{launches}, channels_last copies {copies}")
+    from learning_embeddings_tpu_torch.data import multihot_from_level_labels
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig, ClassifierTrainer)
+
+    lm = workloads.fmnist_labelmap()
+    tr = ClassifierTrainer(lm, ClassifierConfig(
+        backbone="resnet18", lr=1e-3, image_size=image_size,
+        batch_size=batch, device=DEV), grayscale=True)
+    rng = np.random.RandomState(0)
+    ll = lm.leaf_paths()[rng.randint(0, lm.levels[-1], batch)]
+    b = tr.put_batch(rng.randint(0, 256, (batch, image_size, image_size, 1))
+                     .astype(np.uint8), ll,
+                     multihot_from_level_labels(ll, lm))
+    for _ in range(3):
+        tr.train_step(tr.state, *b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        tr.train_step(tr.state, *b)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 20
+    out["step_alone"] = {"ms_per_step": ms, "images_per_s": 1e3 * batch / ms,
+                         "profile": profile_phase(
+                             lambda: tr.train_step(tr.state, *b),
+                             "datasets")}
+    log(f"[datasets] the FashionMNIST step alone (synthetic batch, after "
+        f"warm-up): {ms:.2f} ms ({1e3 * batch / ms:.1f} images/s)")
+    del tr, b
+
+    per_image = {(R * image_size ** 2 // 224 ** 2, C): n
+                 for (R, C), n in RESNET18_224_BN.items()}
+    rows = kernels_phase(batch, shapes=per_image, ragged=None,
+                         tag="datasets")
+    torch.cuda.synchronize()
+    out["bn_shapes"] = [{"R": r["R"], "C": r["C"], "layers": r["layers"],
+                         **{k: r[k]["max_abs_err"]
+                            for k in ("bn_stats", "bn_corr")}}
+                        for r in rows]
+    return out, paths, rows
+
+
+# --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
-                eval_prof, hyp_result, label_results, cli_paths):
+                eval_prof, hyp_result, label_results, cli_paths, r18_rows):
     """One record per kernel. BN kernels: one classifier step's 53
     launches at its shapes; pairwise_order: one joint eval's calls at its
     shapes through the route the wrapper takes (exact_d at D = 10), with
@@ -2403,7 +2764,10 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
     splits the latter by route); launches_by_path gives every kernel's
     count on every path, each counted from 0 over that path's run (the
     CLIs and runner runs of slices 5 and 6 and the fc7 runs of slice 7
-    among them, with pairwise_order's exact_d count beside its total)."""
+    among them, with pairwise_order's exact_d count beside its total).
+    The BN records also hold K1/K2 at ResNet-18@224's 20 shapes (batch 8,
+    the CIFAR / FashionMNIST CLIs' step: `resnet18_224_b8`), whose errors
+    count in max_abs_err."""
     paths = {"classifier": slice_result["launches"],
              "joint_order": joint_result["launches"],
              "joint_hyp_cone": hyp_result["launches"]}
@@ -2423,7 +2787,8 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
             "name": name, "route": "triton", "source": KERNEL_SRC[name],
             "replaces": TPU_KERNELS[name],
             "launches": slice_result["launches"][name],
-            "max_abs_err": max(r[name]["max_abs_err"] for r in bn_rows),
+            "max_abs_err": max(r[name]["max_abs_err"]
+                               for r in bn_rows + r18_rows),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": "bytes",
             "library_ms": tot["library_ms"], "eager_ms": tot["eager_ms"],
@@ -2431,6 +2796,11 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                                     if prof["kernels"][name] else None),
             "launches_joint_path": joint_result["launches"][name],
             "launches_by_path": by_path(name),
+            "resnet18_224_b8": [
+                {"R": r["R"], "C": r["C"], "layers": r["layers"],
+                 **{k: r[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "library_ms", "bound_ms")}}
+                for r in r18_rows],
         })
     path = [r for r in k3_result["shapes"] if r["on_path"]]
     tot = {k: sum(r[k] for r in path)
@@ -2546,10 +2916,17 @@ def main(argv=None):
         cli_paths.update(fc7_paths)
         fc7["seconds"] = time.perf_counter() - t
         log(f"[fc7] phase took {fc7['seconds']:.1f} s")
+        t = time.perf_counter()
+        inference_result, inference_paths = inference_phase()
+        cli_paths.update(inference_paths)
+        torch.cuda.empty_cache()
+        other, other_paths, r18_rows = other_datasets_phase()
+        cli_paths.update(other_paths)
+        log(f"[datasets] phases 12-13 took {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(EXPERIMENTS, ignore_errors=True)
     kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof,
-                          hyp, label, cli_paths)
+                          hyp, label, cli_paths, r18_rows)
 
     details = {"nvidia_smi": smi, "torch": torch.__version__,
                "cuda": torch.version.cuda, "slice": result,
@@ -2559,6 +2936,7 @@ def main(argv=None):
                "label_only": label, "label_cli": cli,
                "joint_runner": runner, "oe_h_cli": oe_h_cli,
                "classifier_cli": classifier_cli, "fc7": fc7,
+               "inference": inference_result, "other_datasets": other,
                "cli_launches": cli_paths,
                "kernel_shapes": bn_rows, "pairwise_order": k3_result,
                "kernels": kernels,

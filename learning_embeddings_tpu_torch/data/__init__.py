@@ -1,7 +1,8 @@
 """Package data (the frozen Butterfly200 taxonomy, a copy of the JAX
 package's ``data/butterfly200_taxonomy.json``), the ETHEC records
-(``records.py``), the index samplers (``sampling.py``) and the host input
-pipeline (``pipeline.py``)."""
+(``records.py``), the index samplers (``sampling.py``), the host input
+pipeline (``pipeline.py``) and the CIFAR / FashionMNIST workloads
+(``workloads.py``)."""
 
 from .pipeline import ImagePipeline
 from .records import (
@@ -16,18 +17,38 @@ from .records import (
     stratified_split,
 )
 from .sampling import WeightedResampler, shuffled_order
+from .workloads import (
+    ArrayDataset,
+    cifar10_labelmap,
+    cifar100_labelmap,
+    fmnist_labelmap,
+    load_cifar10,
+    load_cifar100,
+    load_fmnist,
+    stratified_index_split,
+    synthetic_array_dataset,
+)
 
 __all__ = [
+    "ArrayDataset",
     "EncodedDataset",
     "ImagePipeline",
     "WeightedResampler",
+    "cifar10_labelmap",
+    "cifar100_labelmap",
     "encode_records",
     "filter_to_labelmap",
+    "fmnist_labelmap",
     "image_relpath",
     "leaf_name",
+    "load_cifar10",
+    "load_cifar100",
     "load_ethec_json",
+    "load_fmnist",
     "multihot_from_level_labels",
     "save_ethec_json",
     "shuffled_order",
+    "stratified_index_split",
     "stratified_split",
+    "synthetic_array_dataset",
 ]

@@ -1,3 +1,4 @@
+from .confusion import cross_level_confusion
 from .metrics import (LevelMetrics, confusion_matrix,
                       hierarchical_match_counts, level_metrics_from_confusion,
                       multilevel_metrics, prf1_from_counts)
@@ -21,4 +22,5 @@ __all__ = [
     "level_metrics_from_confusion",
     "multilevel_metrics",
     "hierarchical_match_counts",
+    "cross_level_confusion",
 ]

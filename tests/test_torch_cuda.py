@@ -70,7 +70,14 @@ def test_generic_route_matches_plain_at_small_d(gen, shape):
     assert torch.equal(got, k3.pairwise_order_plain(ui, vi))
 
 
-@pytest.mark.parametrize("R,C", [(12345, 100), (25088, 2048), (401408, 64)])
+#: (R, C) of the 20 BatchNorm layers of ResNet-18 at 224², batch 8 (the
+#: CIFAR / FashionMNIST CLIs' defaults): 1, 4, 5, 5 and 5 layers
+RESNET18_224_B8 = [(100352, 64), (25088, 64), (6272, 128), (1568, 256),
+                   (392, 512)]
+
+
+@pytest.mark.parametrize("R,C", [(12345, 100), (25088, 2048), (401408, 64)]
+                         + RESNET18_224_B8)
 def test_bn_kernels_match_plain(gen, R, C):
     ints = [torch.randint(-1, 2, (R, C), device="cuda", generator=gen)
             .to(torch.bfloat16) for _ in range(2)]
@@ -311,3 +318,71 @@ def test_fc7_joint_epoch_and_order_eval_on_the_card(gen):
             got, ref = k3.pairwise_order(lab, img), \
                 k3.pairwise_order_plain(lab, img)
             assert bool(((got - ref).abs() <= 1e-5 * ref + 1e-6).all())
+
+
+def test_fashion_mnist_cli_on_the_card(gen, tmp_path, capsys):
+    """cli/fashion_mnist.py on the card (synthetic stand-in, ResNet-18 at
+    32² on the 1-channel stem): 20 + 20 BN launches in each train step,
+    none in the eval steps, and no channels_last copy."""
+    from learning_embeddings_tpu_torch.cli import fashion_mnist
+
+    bn.CHANNELS_LAST_COPIES = 0
+    before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES)
+    res = fashion_mnist.main([
+        "--experiment_dir", str(tmp_path), "--experiment_name", "f",
+        "--n_epochs", "1", "--loss", "multi_level", "--set_mode", "train",
+        "--debug", "--image_size", "32", "--batch_size", "32",
+        "--data_root", str(tmp_path / "none")])
+    torch.cuda.synchronize()
+    assert "synthetic stand-in" in capsys.readouterr().out
+    steps = res["train_steps"]
+    assert steps > 10
+    assert (bn_triton.STATS_LAUNCHES - before[0],
+            bn_triton.CORR_LAUNCHES - before[1]) == (20 * steps, 20 * steps)
+    assert bn.CHANNELS_LAST_COPIES == 0
+    assert all(np.isfinite(v) for v in res["test_metrics"].values())
+
+
+def test_inference_on_the_card_matches_the_cpu(gen):
+    """The occlusion maps and LIME's per-level softmax of one float32
+    classifier (ResNet-18 at 64², random BatchNorm running statistics),
+    on the card and on the CPU from the same weights, TF32 off: within
+    rtol 1e-4 / atol 1e-5 (two summation orders); no BN kernel runs."""
+    from learning_embeddings_tpu_torch.cli import inference
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig, ClassifierTrainer)
+
+    lm = toy_labelmap(2, 3)
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 256, (1, 64, 64, 3)).astype(np.uint8)
+    ll = lm.leaf_paths()[3]
+    out, state = {}, None
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            tr = ClassifierTrainer(lm, ClassifierConfig(
+                backbone="resnet18", image_size=64, dtype=torch.float32,
+                device=dev))
+            if state is None:
+                g = torch.Generator().manual_seed(1)
+                state = {k: (v + 0.1 * torch.randn(v.shape, generator=g)
+                             if k.endswith("running_mean") else
+                             v * (0.5 + torch.rand(v.shape, generator=g))
+                             if k.endswith("running_var") else v.clone())
+                         for k, v in tr.model.state_dict().items()}
+            tr.model.load_state_dict(state)
+            slices = inference.level_slices(tr)
+            before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES)
+            maps = inference.occlusion_maps(tr, img, ll, slices)
+            probs = inference.lime_predict(tr, slices)(
+                np.repeat(img.astype(np.float32) / 255.0, 3, axis=0))
+            assert (bn_triton.STATS_LAUNCHES,
+                    bn_triton.CORR_LAUNCHES) == before
+            out[dev] = (maps, probs)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert out["cuda"][0].shape == (lm.n_levels, 4, 4)   # patch 16, stride 16
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
