@@ -27,6 +27,12 @@ and prints no result line):
               1e-5·Σ_d terms + 1e-6); asserts the route each shape
               launched, and times the exact_d and generic kernels in
               turns at the six eval shapes;
+            the additions for the model zoo: K1/K2 at VGG11BN@448's 8
+            BatchNorm shapes (batch 64), K1 at the ghost route's row
+            prefixes of ResNet-50@448's 12 shapes (8 rows) and K1's
+            bf16-rounding variant (each x² rounded to bf16 before the
+            sum) at ResNet-50@448's 12 shapes, each on integer-valued
+            (exact) and normal inputs;
             then batch_norm_train's forward and backward on the card
             against the CPU path, one small classifier train step and one
             small joint step with its eval on the card against the CPU,
@@ -145,6 +151,28 @@ and prints no result line):
             FashionMNIST step alone on a synthetic batch after warm-up
             (ms, images/s, a profile), and K1 and K2 against their plain
             versions at the 20 BN shapes of that step (as in phase 2).
+14. slice 9 the model zoo: (a) one f32 train-mode forward and backward
+            (TF32 off) of small models on the card against the CPU for
+            each option (ResNet-18 with stem s2d, remat, ghost rows 2,
+            bf16 statistics, bn_impl flax; VGG11BN; AlexNet): logits
+            within 1e-5 of max|logit| (bf16 statistics 1e-2) and each
+            option's K1/K2 launches; (b) the s2d ResNet-50@448 with
+            conv7's weights converted equals conv7 (f32 within 1e-5, bf16
+            within 5e-2 of max|logit|); (c) the ResNet-50@448 classifier
+            step, batch 128, with stem s2d, remat, bn_stats_rows 8,
+            bn_stats_dtype bfloat16 and bn_impl flax, 2 + 3 steps each:
+            launches 53/53, 105/53, 53/53, 53/53 (every K1 the rounding
+            variant) and 0/0 a step, no channels_last copy, remat's peak
+            memory below the conv7 step's (phase 3), and a profile of the
+            flax step by class (the library's BatchNorm kernels,
+            convolutions, elementwise): the yardstick for the port's
+            BatchNorm; (d) VGG11BN@448, batch 64: 8 + 8 a step; (e)
+            cli/ethec_experiments.py --model vgg11_bn --bn_stats_rows 8
+            --bn_stats_dtype bfloat16 for one epoch on phase 10's records,
+            cli/image_emb.py --model alexnet (4096-wide features, no BN
+            launch) and cli/oe_h.py on those features without --use_CNN;
+            (f) the hyperbolic joint step at the BASELINE width with remat
+            (105/53 a step) and with bf16 statistics (53/53).
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last is {"ok": true, "device": {...}}. A `kernels` JSON line and the
@@ -321,8 +349,8 @@ def n_copies(nbytes):
 def check_reduction(name, kernel_fn, plain_fn, library_fn, R, C, n_in, gen):
     """Integer-valued (exact) and normal bf16 inputs; returns the max abs
     error on the normal ones and the device times of the kernel, its plain
-    version and the library call, and the kernel's eager time (host launch
-    cost included)."""
+    version and the library call (None where there is none), and the
+    kernel's eager time (host launch cost included)."""
     import torch
 
     dev = DEV
@@ -357,9 +385,18 @@ def check_reduction(name, kernel_fn, plain_fn, library_fn, R, C, n_in, gen):
               for _ in range(n_copies(R * C * 2 * n_in))]
     times = {"ms": device_ms(kernel_fn, copies),
              "plain_ms": device_ms(plain_fn, copies),
-             "library_ms": device_ms(library_fn, copies),
+             "library_ms": (None if library_fn is None
+                            else device_ms(library_fn, copies)),
              "eager_ms": cuda_ms(kernel_fn, copies)}
     return err, times
+
+
+def _as4d(x2, R):
+    """(R·B, C) rows of images with R = H·W rows each → the NCHW
+    channels_last tensor they view (H·W as square as R allows)."""
+    side = int(round(R ** 0.5))
+    h, w = (side, R // side) if side * (R // side) == R else (1, R)
+    return x2.view(-1, h, w, x2.shape[1]).permute(0, 3, 1, 2)
 
 
 def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels"):
@@ -371,16 +408,6 @@ def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels"):
     from learning_embeddings_tpu_torch.ops import bn, bn_triton
 
     gen = torch.Generator(device=DEV).manual_seed(0)
-
-    def hw(R):
-        side = int(round(R ** 0.5))
-        return (side, R // side) if side * (R // side) == R else (1, R)
-
-    def as4d(x2, R):
-        """(R·B, C) rows → the NCHW channels_last tensor they view."""
-        h, w = hw(R)
-        return x2.view(-1, h, w, x2.shape[1]).permute(0, 3, 1, 2)
-
     rows = []
     shapes = RESNET50_448_BN if shapes is None else shapes
     for (R, C), mult in list(shapes.items()) + ([(ragged, 0)] if ragged
@@ -388,14 +415,14 @@ def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels"):
         Rb = R * batch if mult else R
 
         def lib_stats(x2, R=R):
-            return torch.batch_norm_stats(as4d(x2, R), 1e-5)
+            return torch.batch_norm_stats(_as4d(x2, R), 1e-5)
 
         ones = torch.ones(C, device=DEV)
         zeros = torch.zeros(C, device=DEV)
 
         def lib_corr(dy2, x2, R=R):
             return torch.batch_norm_backward_reduce(
-                as4d(dy2, R), as4d(x2, R), zeros, ones, ones,
+                _as4d(dy2, R), _as4d(x2, R), zeros, ones, ones,
                 True, False, False)[:2]
 
         row = {"R": Rb, "C": C, "layers": mult}
@@ -990,7 +1017,8 @@ def profile_phase(step, tag):
            "annotated_ms": annotated_us / 1e3,
            "kernels": kern,
            "top": [{"name": k[:80], "ms": v[0] / 1e3, "count": v[1]}
-                   for k, v in top]}
+                   for k, v in top],
+           "per_name_ms": {k: v[0] / 1e3 for k, v in per_name.items()}}
     if busy == 0:
         log(f"[{tag}] the profiler saw no device time: per-step kernel "
             "time from the profiler not measured")
@@ -1024,6 +1052,7 @@ def _reset_counts():
     from learning_embeddings_tpu_torch.ops import pairwise_order as k3
 
     bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
+    bn_triton.STATS_ROUNDED_LAUNCHES = 0
     k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0
     bn.CHANNELS_LAST_COPIES = 0
 
@@ -1033,6 +1062,7 @@ def _read_counts():
     from learning_embeddings_tpu_torch.ops import pairwise_order as k3
 
     return {"bn_stats": bn_triton.STATS_LAUNCHES,
+            "bn_stats_rounded": bn_triton.STATS_ROUNDED_LAUNCHES,
             "bn_corr": bn_triton.CORR_LAUNCHES,
             "pairwise_order": k3.LAUNCHES,
             "pairwise_order_exact_d": k3.EXACT_D_LAUNCHES,
@@ -2749,10 +2779,497 @@ def other_datasets_phase(image_size=224, batch=8):
 
 
 # --------------------------------------------------------------------------
+# phase 14: slice 9, the model zoo
+# --------------------------------------------------------------------------
+#: per-image (R, C) of the 8 train-mode BatchNorm layers of VGG11BN at
+#: 448², with how many layers have each shape
+VGG11BN_448_BN = {(200704, 64): 1, (50176, 128): 1, (12544, 256): 2,
+                  (3136, 512): 2, (784, 512): 2}
+#: the ghost route's statistics rows and VGG11BN's batch
+GHOST_ROWS, VGG_BATCH = 8, 64
+#: the ResNet-50@448 classifier options of phase 14: config fields and the
+#: K1 / K2 launches a step (remat: the 52 block BatchNorms recompute)
+ZOO_OPTIONS = {"s2d": (dict(stem="s2d"), 53, 53),
+               "remat": (dict(remat=True), 105, 53),
+               "ghost8": (dict(bn_stats_rows=GHOST_ROWS), 53, 53),
+               "bf16_stats": (dict(bn_stats_dtype="bfloat16"), 53, 53),
+               "flax": (dict(bn_impl="flax"), 0, 0)}
+#: the small card-against-CPU steps: backbone, options, K1 / K2 launches
+ZOO_SMALL = {"s2d": ("resnet18", dict(stem="s2d"), 20, 20),
+             "remat": ("resnet18", dict(remat=True), 39, 20),
+             "ghost2": ("resnet18", dict(bn_stats_rows=2), 20, 20),
+             "bf16_stats": ("resnet18", dict(bn_stats_dtype="bfloat16"),
+                            20, 20),
+             "flax": ("resnet18", dict(bn_impl="flax"), 0, 0),
+             "vgg11_bn": ("vgg11_bn", {}, 8, 8),
+             "alexnet": ("alexnet", {}, 0, 0)}
+#: profile classes of a step: (class, name patterns), the first match
+#: counts; library_bn is the library's BatchNorm (ATen's channels_last
+#: kernels or cuDNN's)
+PROFILE_CLASSES = (
+    ("bn_kernels_of_the_port", ("bn_stats_kernel", "bn_corr_kernel")),
+    ("library_bn", ("bn_fw", "bn_bw", "batch_norm", "batchnorm",
+                    "BatchNorm", "bn_")),
+    ("conv", ("conv", "xmma", "cutlass", "gemm", "dgrad", "wgrad",
+              "implicit", "nchwToNhwc", "nhwcToNchw", "cudnn")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce",
+                     "Memcpy", "Memset", "copy", "fill")))
+
+
+def profile_classes(prof):
+    """Device ms of a profile_phase() result by PROFILE_CLASSES (the rest
+    under 'other')."""
+    out = {c: 0.0 for c, _ in PROFILE_CLASSES}
+    out["other"] = 0.0
+    for name, ms in prof["per_name_ms"].items():
+        cls = next((c for c, pats in PROFILE_CLASSES
+                    if any(p in name for p in pats)), "other")
+        out[cls] += ms
+    return out
+
+
+def k1_rows(shapes, batch, tag, round_sq=False, library=True):
+    """K1 (or its bf16-rounding variant) against its plain version at
+    `shapes` (per image) × `batch`, timed; the library call is
+    torch.batch_norm_stats where it computes the same function."""
+    import torch
+
+    from learning_embeddings_tpu_torch.ops import bn, bn_triton
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rows = []
+    for (R, C), mult in shapes.items():
+        Rb = R * batch
+        err, times = check_reduction(
+            "bn_stats" + ("_bf16sq" if round_sq else ""),
+            lambda x2: bn_triton.bn_stats(x2, round_sq),
+            lambda x2: bn._stats_plain(x2, round_sq),
+            (lambda x2, R=R: torch.batch_norm_stats(_as4d(x2, R), 1e-5))
+            if library else None, Rb, C, 1, gen)
+        rows.append({"R": Rb, "C": C, "layers": mult, "max_abs_err": err,
+                     **times, "bound_ms": bound_ms(Rb, C, 1)})
+        log(f"[{tag}] R={Rb:>9} C={C:>4} x{mult:<2} bn_stats"
+            f"{' (bf16 x²)' if round_sq else ''} {times['ms'] * 1e3:7.1f}us "
+            f"(plain {times['plain_ms'] * 1e3:7.1f}, library "
+            + ("none" if times["library_ms"] is None
+               else f"{times['library_ms'] * 1e3:7.1f}")
+            + f", bound {rows[-1]['bound_ms'] * 1e3:6.1f}) err {err:.3g}")
+    return rows
+
+
+def zoo_kernels_phase(batch):
+    """Phase 2's additions: K1/K2 at VGG11BN@448's 8 BN shapes (batch 64),
+    K1 at the ghost route's prefix shapes of ResNet-50@448 (8 rows), and
+    K1's bf16-rounding variant at ResNet-50@448's 12 shapes (batch
+    `batch`), each on integer-valued (exact) and normal inputs."""
+    return {
+        "vgg11_bn_448_b64": kernels_phase(VGG_BATCH, shapes=VGG11BN_448_BN,
+                                          ragged=None, tag="kernels-vgg"),
+        "ghost_prefix_r50_448_rows8": k1_rows(RESNET50_448_BN, GHOST_ROWS,
+                                              "kernels-ghost"),
+        "bf16_square_r50_448": k1_rows(RESNET50_448_BN, batch,
+                                       "kernels-bf16sq", round_sq=True,
+                                       library=False)}
+
+
+def small_zoo_phase(image_size=64, batch=8):
+    """One f32 train-mode forward and backward of a small model for each
+    zoo option (ZOO_SMALL) on the card (kernels) and on the CPU (plain
+    versions) from the same weights, TF32 off: logits within 1e-5 of
+    max|logit| (bf16 statistics: 1e-2, since the two sides' f32 sums round
+    each channel's mean to bf16 and one that straddles a rounding boundary
+    moves that channel by a bf16 step), and the card's K1/K2 launches."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.models import (HierarchicalCNN,
+                                                      init_params_)
+    from learning_embeddings_tpu_torch.ops.image import device_scale
+
+    rng = np.random.RandomState(0)
+    imgs = torch.from_numpy(rng.randint(0, 256, (batch, image_size,
+                                                 image_size, 3))
+                            .astype(np.uint8))
+    levels = (2, 4, 8)
+    w = torch.from_numpy(rng.randn(batch, sum(levels)).astype(np.float32))
+    out = {}
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, (backbone, kw, n_stats, n_corr) in ZOO_SMALL.items():
+            model = HierarchicalCNN(backbone, levels, dtype=torch.float32,
+                                    **kw)
+            init_params_(model, torch.Generator().manual_seed(0))
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+            res = {}
+            for dev in ("cpu", DEV):
+                model.load_state_dict(state)
+                model.to(device=dev, memory_format=torch.channels_last)
+                model.train().zero_grad()
+                x = device_scale(imgs.to(dev)).permute(0, 3, 1, 2)
+                _reset_counts()
+                logits = model(x)
+                (logits * w.to(dev)).sum().backward()
+                if dev == DEV:
+                    torch.cuda.synchronize()
+                res[dev] = (logits.detach().cpu(), _read_counts())
+            (card, counts), (cpu, _) = res[DEV], res["cpu"]
+            rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
+            limit = 1e-2 if "bf16" in name else 1e-5
+            want = {"bn_stats": n_stats, "bn_corr": n_corr,
+                    "bn_stats_rounded": n_stats if "bf16" in name else 0}
+            got = {k: counts[k] for k in want}
+            if not rel <= limit or got != want:
+                raise AssertionError(
+                    f"small {name} ({backbone}) step: card vs CPU logits "
+                    f"{rel:.3g} of max|logit| (limit {limit}); launches "
+                    f"{got}, expected {want}")
+            out[name] = {"backbone": backbone, "rel_logit_err": rel,
+                         "limit": limit, "launches": got}
+            log(f"[zoo] small {name} ({backbone}) {image_size}² f32 step: "
+                f"card vs CPU logits {rel:.2e} of max|logit| (limit "
+                f"{limit}); launches {got}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    return out
+
+
+def zoo_step_phase(labelmap, name, cfg_kw, want, batch, backbone="resnet50",
+                   steps=3, warmup=2, image_size=448):
+    """The classifier step (multi_level_ce, Adam lr 1e-5, 448², bf16 trunk,
+    synthetic uint8 input) with the zoo option `cfg_kw`, as slice_phase
+    runs the default: `warmup` + `steps` steps, counts set to 0 just
+    before and read just after. Asserts finite losses, `want` = (K1, K2)
+    launches a step (bf16 statistics: every K1 the rounding variant) and
+    no channels_last copy; records ms a step, images/s and the peak
+    memory, above what was allocated before the trainer was built too."""
+    import torch
+
+    from learning_embeddings_tpu_torch.ops import bn
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig, ClassifierTrainer)
+
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    cfg = ClassifierConfig(backbone=backbone, criterion="multi_level_ce",
+                           optimizer="adam", lr=1e-5, image_size=image_size,
+                           batch_size=batch, seed=0, dtype=torch.bfloat16,
+                           device=DEV, **cfg_kw)
+    trainer = ClassifierTrainer(labelmap, cfg)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    images = torch.randint(0, 256, (batch, image_size, image_size, 3),
+                           dtype=torch.uint8, device=DEV, generator=gen)
+    paths = torch.as_tensor(labelmap.leaf_paths(), device=DEV)
+    leaves = torch.randint(0, labelmap.levels[-1], (batch,), device=DEV,
+                           generator=gen)
+    batch_t = trainer.put_batch(images, paths[leaves],
+                                torch.zeros((batch, labelmap.n_classes),
+                                            device=DEV))
+    _reset_counts()
+    state, losses = trainer.state, []
+    for _ in range(warmup):
+        state, loss = trainer.train_step(state, *batch_t)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, loss = trainer.train_step(state, *batch_t)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    copies = bn.CHANNELS_LAST_COPIES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(l) for l in losses]
+    n_steps = warmup + steps
+    per_step = {k: launches[k] / n_steps
+                for k in ("bn_stats", "bn_stats_rounded", "bn_corr")}
+    want_step = {"bn_stats": want[0], "bn_corr": want[1],
+                 "bn_stats_rounded": want[0] if cfg.bn_stats_dtype
+                 == "bfloat16" else 0}
+    if not all(map(math.isfinite, losses)) or per_step != want_step or \
+            copies:
+        raise AssertionError(
+            f"zoo {name}: losses {losses}, launches a step {per_step} "
+            f"(expected {want_step}), channels_last copies {copies}")
+    result = {"backbone": backbone, "batch": batch, "options": cfg_kw,
+              "steps_timed": steps, "steps_total": n_steps,
+              "losses": losses, "launches": launches,
+              "launches_per_step": per_step, "channels_last_copies": copies,
+              "ms_per_step": 1e3 * seconds / steps,
+              "images_per_s": batch * steps / seconds,
+              "max_memory_allocated_gib": peak,
+              "memory_above_start_gib": peak - base_gib}
+    log(f"[zoo] {name}: {backbone}@{image_size} batch {batch} {cfg_kw}: "
+        f"{result['ms_per_step']:.2f} ms/step, {result['images_per_s']:.1f} "
+        f"images/s, peak {peak:.2f} GiB ({peak - base_gib:.2f} above the "
+        f"start), launches a step {per_step}, channels_last copies "
+        f"{copies}; losses {[round(l, 4) for l in losses]}")
+    return trainer, state, batch_t, result
+
+
+def s2d_equivalence(labelmap, n=8, image_size=448):
+    """The s2d ResNet-50 with conv7's weights (conv1 through
+    s2d_stem_kernel) against the conv7 model on the card, eval mode at 448²:
+    in f32 with TF32 off within 1e-5 of max|logit| (the same taps summed in
+    another order), in bf16 within 5e-2 (every layer rounds to bf16)."""
+    import torch
+
+    from learning_embeddings_tpu_torch.models import (HierarchicalCNN,
+                                                      init_params_)
+    from learning_embeddings_tpu_torch.models.resnet import s2d_stem_kernel
+    from learning_embeddings_tpu_torch.ops.image import device_scale
+
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    x = device_scale(torch.randint(0, 256, (n, image_size, image_size, 3),
+                                   dtype=torch.uint8, device=DEV,
+                                   generator=gen)).permute(0, 3, 1, 2)
+    out = {}
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dtype, limit in ((torch.float32, 1e-5), (torch.bfloat16, 5e-2)):
+            conv7 = HierarchicalCNN("resnet50", tuple(labelmap.levels),
+                                    dtype=dtype)
+            init_params_(conv7, torch.Generator().manual_seed(0))
+            s2d = HierarchicalCNN("resnet50", tuple(labelmap.levels),
+                                  dtype=dtype, stem="s2d")
+            sd = conv7.state_dict()
+            sd["trunk.conv1.weight"] = s2d_stem_kernel(
+                sd["trunk.conv1.weight"])
+            s2d.load_state_dict(sd, strict=True)
+            with torch.no_grad():
+                a = conv7.to(DEV, memory_format=torch.channels_last).eval()(x)
+                b = s2d.to(DEV, memory_format=torch.channels_last).eval()(x)
+            rel = ((a - b).abs().max() / a.abs().max()).item()
+            if not rel <= limit:
+                raise AssertionError(f"s2d against conv7 ({dtype}): logits "
+                                     f"differ by {rel:.3g} of max|logit| "
+                                     f"(limit {limit})")
+            out[str(dtype)] = {"rel_logit_err": rel, "limit": limit}
+            log(f"[zoo] s2d = conv7 with converted weights, {dtype}: "
+                f"{rel:.2e} of max|logit| (limit {limit})")
+            del conv7, s2d
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_joint_step(labelmap, tag, cfg_kw, want, image_size=448, batch=16,
+                   n_train=2048, steps=3, warmup=2):
+    """The hyperbolic joint --use_CNN step at the BASELINE width
+    (joint_phase's configuration, energy hyp_cone) with `cfg_kw`, steps
+    only: finite losses and `want` = (K1, K2) launches a step."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.losses.joint_sampling import (
+        build_joint_graph)
+    from learning_embeddings_tpu_torch.train.joint_cnn import (
+        JointCNNConfig, JointCNNTrainer)
+
+    nl = labelmap.n_classes
+    rng = np.random.RandomState(0)
+    graph, train_edges = build_joint_graph(
+        labelmap, labelmap.leaf_paths()[rng.randint(0, labelmap.levels[-1],
+                                                    n_train)])
+    img_edges = train_edges[train_edges[:, 1] >= nl]
+    bank = rng.randint(0, 256, (64, image_size, image_size, 3),
+                       dtype=np.uint8)
+    cfg = JointCNNConfig(energy="hyp_cone", backbone="resnet50",
+                         embedding_dim=EMB_DIM, image_size=image_size,
+                         batch_size=batch, neg_to_pos_ratio=5, alpha=0.05,
+                         pick_per_level=True, lr_labels=1e-2,
+                         lr_images=1e-3, tower_dtype="bfloat16", seed=0,
+                         device=DEV, **cfg_kw)
+    trainer = JointCNNTrainer(labelmap, graph, img_edges[:10000],
+                              lambda rows: bank[np.asarray(rows) % 64], cfg)
+    edges = img_edges[rng.permutation(len(img_edges))]
+    prepared = [trainer.prepare_batch(*edges[i * batch:(i + 1) * batch].T)
+                for i in range(warmup + steps)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    losses = [trainer.train_prepared(p)[0] for p in prepared[:warmup]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses += [trainer.train_prepared(p)[0] for p in prepared[warmup:]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    losses = [float(l) for l in losses]
+    n_steps = len(losses)
+    per_step = {k: launches[k] / n_steps for k in ("bn_stats", "bn_corr")}
+    if not all(map(math.isfinite, losses)) or \
+            (per_step["bn_stats"], per_step["bn_corr"]) != want:
+        raise AssertionError(f"zoo joint {tag}: losses {losses}, launches "
+                             f"a step {per_step}, expected {want}")
+    result = {"options": cfg_kw, "losses": losses, "launches": launches,
+              "launches_per_step": per_step,
+              "tower_rows_per_step": [int(p[0].shape[0]) for p in prepared],
+              "ms_per_step": 1e3 * seconds / steps,
+              "max_memory_allocated_gib":
+                  torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[zoo] joint {tag} (hyp_cone, resnet50@{image_size}, {batch} "
+        f"edges): {result['ms_per_step']:.2f} ms/step, peak "
+        f"{result['max_memory_allocated_gib']:.2f} GiB, launches a step "
+        f"{per_step}; losses {[round(l, 4) for l in losses]}")
+    del trainer, prepared
+    torch.cuda.empty_cache()
+    return result
+
+
+def zoo_cli_phase(image_size=448, batch=VGG_BATCH):
+    """cli/ethec_experiments.py --model vgg11_bn --bn_stats_rows 8
+    --bn_stats_dtype bfloat16 for one epoch on phase 10's records (batch
+    64, 448²): 8 + 8 BN launches a train step, every K1 the rounding
+    variant; then cli/image_emb.py --model alexnet on the same records
+    (4096-wide features, no BN launch) and cli/oe_h.py on them without
+    --use_CNN for one epoch (the fc7 path's default model: no BN, no K3
+    with the hyperbolic energy)."""
+    import numpy as np
+
+    from learning_embeddings_tpu_torch.cli import (ethec_experiments,
+                                                   image_emb, oe_h)
+
+    root = os.path.join(EXPERIMENTS, "classifier_data")
+    splits, images = (os.path.join(root, "splits"),
+                      os.path.join(root, "images"))
+    paths, out = {}, {}
+    name = "cli_ethec_vgg11_bn_ghost8_bf16"
+    res, seconds = _run_path(name, lambda: ethec_experiments.main(
+        ["--data_dir", splits, "--image_dir", images, "--experiment_dir",
+         EXPERIMENTS, "--experiment_name", name, "--model", "vgg11_bn",
+         "--loss", "multi_level", "--image_size", str(image_size),
+         "--batch_size", str(batch), "--lr", "1e-5", "--n_workers", "8",
+         "--n_epochs",
+         "1", "--set_mode", "train", "--bn_stats_rows", str(GHOST_ROWS),
+         "--bn_stats_dtype", "bfloat16", "--device", DEV]), paths)
+    launches, steps = paths[name], res["train_steps"]
+    want = {"bn_stats": 8 * steps, "bn_stats_rounded": 8 * steps,
+            "bn_corr": 8 * steps}
+    if steps < 1 or {k: launches[k] for k in want} != want or \
+            not all(map(math.isfinite, res["test_metrics"].values())):
+        raise AssertionError(f"{name}: {steps} train steps, launches "
+                             f"{launches} (expected {want}), test "
+                             f"{res['test_metrics']}")
+    tags = {r["tag"]: r["value"] for r in _jsonl(os.path.join(EXPERIMENTS,
+                                                              name))}
+    out[name] = {"seconds": seconds, "train_steps": steps,
+                 "launches": launches, "test_metrics": res["test_metrics"],
+                 **{k: tags[k] for k in (
+                     "epoch_time", "epoch_time_train", "epoch_time_data_wait",
+                     "epoch_time_eval", "epoch_time_checkpoint")}}
+    log(f"[zoo] {name}: {seconds:.1f} s, {steps} train steps (8 + 8 BN "
+        f"launches each, K1 bf16 x²), epoch {tags['epoch_time']:.2f} s "
+        f"(train pass {tags['epoch_time_train']:.2f}, data wait "
+        f"{tags['epoch_time_data_wait']:.2f}, eval "
+        f"{tags['epoch_time_eval']:.2f}); test micro-F1 "
+        f"{res['test_metrics']['micro_f1']:.4f}; launches {launches}")
+
+    feats = os.path.join(EXPERIMENTS, "alexnet_emb")
+    name = "cli_image_emb_alexnet"
+    written, seconds = _run_path(name, lambda: image_emb.main(
+        ["--data_dir", splits, "--image_dir", images, "--model", "alexnet",
+         "--image_size", str(image_size), "--batch_size", "128",
+         "--n_workers", "8",
+         "--output_dir", feats, "--device", DEV]), paths)
+    shapes = {}
+    for split, path in written.items():
+        with np.load(path) as z:
+            f = z["features"]
+            shapes[split] = f.shape
+            if f.shape[1] != 4096 or not np.isfinite(f).all():
+                raise AssertionError(f"{name} {split}: {f.shape}")
+    if any(paths[name][k] for k in ("bn_stats", "bn_corr")):
+        raise AssertionError(f"{name} launched {paths[name]}")
+    out[name] = {"seconds": seconds, "shapes": shapes,
+                 "launches": paths[name]}
+    log(f"[zoo] {name}: {seconds:.1f} s, features {shapes}")
+
+    name = "cli_oe_h_alexnet_fc7"
+    res, seconds = _run_path(name, lambda: oe_h.main(
+        ["--data_dir", splits, "--image_dir", images, "--features_dir",
+         feats, "--set_mode", "train", "--n_epochs", "1",
+         "--experiment_dir", EXPERIMENTS, "--experiment_name", name,
+         "--device", DEV]), paths)
+    tr = res["trainer"]
+    finals = [res["reconstruction_f1"]] + list(res["test_metrics"].values())
+    if tr.featnet.fc1.in_features != 4096 or any(paths[name].values()) or \
+            not all(map(math.isfinite, finals)):
+        raise AssertionError(f"{name}: {tr.featnet}, launches "
+                             f"{paths[name]}, {res['test_metrics']}")
+    out[name] = {"seconds": seconds, "launches": paths[name],
+                 "test_metrics": res["test_metrics"],
+                 "reconstruction_f1": res["reconstruction_f1"]}
+    log(f"[zoo] {name}: {seconds:.1f} s, 4096-wide FeatNet, test edge F1 "
+        f"{res['test_metrics']['edge_f1']:.4f}; launches {paths[name]}")
+    return out, paths
+
+
+def zoo_phase(labelmap, batch, conv7_peak_gib, image_size=448,
+              vgg_batch=VGG_BATCH, small_size=64):
+    """Phase 14: the small card-against-CPU steps, the ResNet-50@448 step
+    under each ZOO_OPTIONS entry (with s2d's equivalence to conv7, remat's
+    peak memory below the conv7 step's `conv7_peak_gib`, and a profile of
+    the flax step: the library BatchNorm yardstick), VGG11BN@448 at batch
+    64, the zoo CLIs and the joint step with remat and bf16 statistics.
+    Returns (details, launches by path)."""
+    import torch
+
+    t_start = time.perf_counter()
+    out = {"small": small_zoo_phase(small_size), "steps": {}}
+    paths = {}
+    out["s2d_equivalence"] = s2d_equivalence(labelmap,
+                                             image_size=image_size)
+    for name, (kw, n_stats, n_corr) in ZOO_OPTIONS.items():
+        trainer, state, batch_t, res = zoo_step_phase(
+            labelmap, name, kw, (n_stats, n_corr), batch,
+            image_size=image_size)
+        if name == "flax":
+            prof = profile_phase(lambda: trainer.train_step(state, *batch_t),
+                                 "zoo-flax")
+            res["profile"] = prof
+            res["profile_classes_ms"] = profile_classes(prof)
+            log(f"[zoo] flax step by class (device ms): "
+                f"{res['profile_classes_ms']}")
+        out["steps"][name] = res
+        paths["zoo_resnet50_" + name] = res["launches"]
+        del trainer, state, batch_t
+        torch.cuda.empty_cache()
+    remat = out["steps"]["remat"]["memory_above_start_gib"]
+    if not remat < conv7_peak_gib:
+        raise AssertionError(f"remat's peak {remat:.2f} GiB is not below "
+                             f"the conv7 step's {conv7_peak_gib:.2f} GiB")
+    trainer, state, batch_t, res = zoo_step_phase(
+        labelmap, "vgg11_bn", {}, (8, 8), vgg_batch, backbone="vgg11_bn",
+        image_size=image_size)
+    out["steps"]["vgg11_bn"] = res
+    paths["zoo_vgg11_bn"] = res["launches"]
+    del trainer, state, batch_t
+    torch.cuda.empty_cache()
+    out["cli"], cli_paths = zoo_cli_phase(image_size, vgg_batch)
+    paths.update(cli_paths)
+    torch.cuda.empty_cache()
+    out["joint"] = {}
+    for tag, kw, want in (("remat", dict(remat=True), (105, 53)),
+                          ("bf16_stats", dict(bn_stats_dtype="bfloat16"),
+                           (53, 53))):
+        out["joint"][tag] = zoo_joint_step(labelmap, tag, kw, want,
+                                           image_size=image_size)
+        paths["zoo_joint_" + tag] = out["joint"][tag]["launches"]
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[zoo] phase 14 took {out['seconds']:.1f} s")
+    return out, paths
+
+
+# --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
-                eval_prof, hyp_result, label_results, cli_paths, r18_rows):
+                eval_prof, hyp_result, label_results, cli_paths, r18_rows,
+                zoo_rows):
     """One record per kernel. BN kernels: one classifier step's 53
     launches at its shapes; pairwise_order: one joint eval's calls at its
     shapes through the route the wrapper takes (exact_d at D = 10), with
@@ -2766,8 +3283,12 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
     CLIs and runner runs of slices 5 and 6 and the fc7 runs of slice 7
     among them, with pairwise_order's exact_d count beside its total).
     The BN records also hold K1/K2 at ResNet-18@224's 20 shapes (batch 8,
-    the CIFAR / FashionMNIST CLIs' step: `resnet18_224_b8`), whose errors
-    count in max_abs_err."""
+    the CIFAR / FashionMNIST CLIs' step: `resnet18_224_b8`) and at
+    VGG11BN@448's 8 (batch 64: `vgg11_bn_448_b64`), K1 at the ghost
+    route's prefixes of ResNet-50@448 (8 rows: `ghost_prefix_r50_448_rows8`)
+    and K1's bf16-rounding variant at ResNet-50@448's 12 shapes with its
+    launches by path (`bf16_square_variant`); all their errors count in
+    max_abs_err."""
     paths = {"classifier": slice_result["launches"],
              "joint_order": joint_result["launches"],
              "joint_hyp_cone": hyp_result["launches"]}
@@ -2778,17 +3299,31 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
     def by_path(name):
         return {p: c.get(name, 0) for p, c in paths.items()}
 
+    def summed(rows, k):
+        return sum(r[k] * r["layers"] for r in rows)
+
+    def shape_rows(rows):
+        return [{k: r[k] for k in ("R", "C", "layers", "max_abs_err", "ms",
+                                   "plain_ms", "library_ms", "bound_ms")}
+                for r in rows]
+
+    vgg = zoo_rows["vgg11_bn_448_b64"]
+    ghost = zoo_rows["ghost_prefix_r50_448_rows8"]
+    bf16sq = zoo_rows["bf16_square_r50_448"]
     kernels = []
     for name in ("bn_stats", "bn_corr"):
         tot = {k: sum(r[name][k] * r["layers"] for r in bn_rows)
                for k in ("ms", "eager_ms", "plain_ms", "library_ms",
                          "bound_ms")}
+        zoo_err = [r[name]["max_abs_err"] for r in vgg] + (
+            [r["max_abs_err"] for r in ghost + bf16sq]
+            if name == "bn_stats" else [])
         kernels.append({
             "name": name, "route": "triton", "source": KERNEL_SRC[name],
             "replaces": TPU_KERNELS[name],
             "launches": slice_result["launches"][name],
-            "max_abs_err": max(r[name]["max_abs_err"]
-                               for r in bn_rows + r18_rows),
+            "max_abs_err": max([r[name]["max_abs_err"]
+                                for r in bn_rows + r18_rows] + zoo_err),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": "bytes",
             "library_ms": tot["library_ms"], "eager_ms": tot["eager_ms"],
@@ -2801,7 +3336,24 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                  **{k: r[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")}}
                 for r in r18_rows],
+            "vgg11_bn_448_b64": [
+                {"R": r["R"], "C": r["C"], "layers": r["layers"],
+                 **{k: r[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "library_ms", "bound_ms")}}
+                for r in vgg],
         })
+        if name == "bn_stats":
+            kernels[-1]["ghost_prefix_r50_448_rows8"] = {
+                **{k: summed(ghost, k) for k in ("ms", "plain_ms",
+                                                 "library_ms", "bound_ms")},
+                "shapes": shape_rows(ghost)}
+            kernels[-1]["bf16_square_variant"] = {
+                **{k: summed(bf16sq, k) for k in ("ms", "plain_ms",
+                                                  "bound_ms")},
+                "library_ms": None, "bound_by": "bytes",
+                "max_abs_err": max(r["max_abs_err"] for r in bf16sq),
+                "launches_by_path": by_path("bn_stats_rounded"),
+                "shapes": shape_rows(bf16sq)}
     path = [r for r in k3_result["shapes"] if r["on_path"]]
     tot = {k: sum(r[k] for r in path)
            for k in ("ms", "generic_ms", "eager_ms", "plain_ms", "bound_ms")}
@@ -2860,6 +3412,7 @@ def main(argv=None):
 
     t = time.perf_counter()
     bn_rows = kernels_phase(args.batch)
+    zoo_rows = zoo_kernels_phase(args.batch)
     k3_result = k3_phase(build, labelmap.n_classes)
     bn_train_phase()
     small_step_phase(toy_labelmap(3, 3))
@@ -2871,6 +3424,9 @@ def main(argv=None):
     trainer, state, batch_t, result = slice_phase(labelmap, args.batch)
     prof = profile_phase(
         lambda: trainer.train_step(state, *batch_t), "measure")
+    prof["classes_ms"] = profile_classes(prof)
+    log(f"[measure] the conv7 step by class (device ms): "
+        f"{prof['classes_ms']}")
     del trainer, state, batch_t
     torch.cuda.empty_cache()
 
@@ -2923,10 +3479,14 @@ def main(argv=None):
         other, other_paths, r18_rows = other_datasets_phase()
         cli_paths.update(other_paths)
         log(f"[datasets] phases 12-13 took {time.perf_counter() - t:.1f} s")
+        torch.cuda.empty_cache()
+        zoo, zoo_paths = zoo_phase(labelmap, args.batch,
+                                   result["max_memory_allocated_gib"])
+        cli_paths.update(zoo_paths)
     finally:
         shutil.rmtree(EXPERIMENTS, ignore_errors=True)
     kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof,
-                          hyp, label, cli_paths, r18_rows)
+                          hyp, label, cli_paths, r18_rows, zoo_rows)
 
     details = {"nvidia_smi": smi, "torch": torch.__version__,
                "cuda": torch.version.cuda, "slice": result,
@@ -2937,6 +3497,7 @@ def main(argv=None):
                "joint_runner": runner, "oe_h_cli": oe_h_cli,
                "classifier_cli": classifier_cli, "fc7": fc7,
                "inference": inference_result, "other_datasets": other,
+               "zoo": zoo, "zoo_kernel_shapes": zoo_rows,
                "cli_launches": cli_paths,
                "kernel_shapes": bn_rows, "pairwise_order": k3_result,
                "kernels": kernels,

@@ -13,8 +13,11 @@ Euclidean; ``oe_h.py``, hyperbolic): the port of
 
 With the order energy the eval's all-pairs energies are the kernel of
 ``ops/pairwise_order.py`` on both paths. Pixels decode through
-``data/pipeline.py`` (cv2, else PIL); the native JPEG loader is not
-ported yet (ROADMAP.md queue A item 27).
+``data/pipeline.py`` (cv2, else PIL), or with ``--loader native`` the train
+pixels through the C++ JPEG loader of ``data/native_loader.py`` (resize +
+flip, no crop: ``pad=0``). The JAX CLI takes that loader by itself for
+.jpg files and falls back to Python quietly; the port takes it only when
+asked and raises where it fails.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from ..losses.joint_sampling import build_joint_graph
 from ..train.experiment import load_checkpoint_file
 from ..train.joint import JointTrainerConfig
 from ..train.runner import run_joint_embedding
-from .common import add_common_flags, load_ethec_data, manifest_from_args
+from .common import (add_common_flags, add_loader_flag, load_ethec_data,
+                     manifest_from_args)
 
 LOSS_MAP = {
     "order_emb_loss": "order",
@@ -49,6 +53,7 @@ def resolve_energy(loss: str, default_energy: str) -> str:
 def build_parser(default_energy: str):
     parser = argparse.ArgumentParser()
     add_common_flags(parser)
+    add_loader_flag(parser)
     parser.add_argument("--alpha", type=float, default=0.05)
     parser.add_argument("--load_G_from_disk", action="store_true",
                         help="Load/save the combined graph cache "
@@ -255,6 +260,24 @@ def joint_main(args, default_energy: str):
     return result
 
 
+def native_pixels(paths, size: int, seed: int) -> np.ndarray:
+    """The joint train transform (resize + random hflip; the zero-headroom
+    crop window, pad=0, makes the loader's resize → crop a plain resize)
+    of JPEG files through the C++ loader, as f32 in [0, 1]; raises on any
+    file it cannot read (JAX ``cli/_joint_main.py:287-314`` falls back to
+    Python instead)."""
+    from ..data import native_loader
+
+    batch, status = native_loader.load_augment_batch(paths, size, pad=0,
+                                                     train=True, seed=seed)
+    if (status != 0).any():
+        bad = np.nonzero(status)[0][:3]
+        raise FileNotFoundError(f"native loader failed on "
+                                f"{[paths[j] for j in bad]} (codes "
+                                f"{status[bad]})")
+    return batch
+
+
 def _joint_cnn_main(args, labelmap, datasets, graph, train_edges,
                     default_energy):
     """--use_CNN: the image tower on pixels, through run_joint_cnn (resume,
@@ -272,7 +295,12 @@ def _joint_cnn_main(args, labelmap, datasets, graph, train_edges,
         # the joint train transform: resize + random hflip, seeded by the
         # batch's first row
         rows = np.asarray(rows)
-        rng = np.random.RandomState(int(rows[0]) if len(rows) else 0)
+        seed = int(rows[0]) if len(rows) else 0
+        if args.loader == "native":
+            return native_pixels(
+                [os.path.join(args.image_dir, ds.image_paths[r])
+                 for r in rows], size, seed)
+        rng = np.random.RandomState(seed)
         return np.stack([
             augment_joint_train(decode_image(
                 os.path.join(args.image_dir, ds.image_paths[r])), size, rng)

@@ -14,6 +14,7 @@ import numpy as np
 
 from ..data import (encode_records, filter_to_labelmap, load_ethec_json,
                     stratified_split)
+from ..data.pipeline import LOADERS
 from ..hierarchy import labelmap_from_records
 
 #: where the ETHEC split jsons live: $ETHEC_SPLITS_DIR, as in the JAX
@@ -25,6 +26,15 @@ def add_device_flag(parser: argparse.ArgumentParser) -> None:
     """The port's one flag beyond the JAX package's."""
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (cuda, or cpu).")
+
+
+def add_loader_flag(parser: argparse.ArgumentParser) -> None:
+    """``--loader``: the image decode path, asked for by name (the JAX
+    CLIs switch to their native loader on JPEG input by themselves)."""
+    parser.add_argument("--loader", default="python", choices=list(LOADERS),
+                        help="Image decode path: python (cv2/PIL threads) "
+                             "or native (the C++ JPEG loader; JPEG files "
+                             "only; its uint8 batches round once more).")
 
 
 def add_common_flags(parser: argparse.ArgumentParser) -> None:

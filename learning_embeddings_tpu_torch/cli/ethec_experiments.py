@@ -3,10 +3,13 @@
 loss names, plus ``--device``), through ``train/runner.py::run_classifier``.
 
 On the card every train step runs the BatchNorm reductions of
-``ops/bn_triton.py`` (the port's only train-mode BatchNorm; the JAX CLI
-runs flax's). Flags whose feature is not ported raise: ``--n_model > 1``
-and ``--spatial_partition`` (ROADMAP.md queue A item 21),
-``--bn_stats_rows > 0`` and ``--bn_stats_dtype bfloat16`` (item 18).
+``ops/bn_triton.py`` (the port's default BatchNorm; the JAX CLI runs
+flax's); ``--bn_stats_rows`` and ``--bn_stats_dtype bfloat16`` take the
+``GhostBatchNorm`` route (K1 on the statistics rows, its bf16-rounding
+variant for bf16). ``--loader native`` decodes JPEG files in the C++
+loader of ``data/native_loader.py`` (the JAX CLI takes it by itself for
+.jpg files). Flags whose feature is not ported raise: ``--n_model > 1``
+and ``--spatial_partition`` (ROADMAP.md queue A item 21).
 
     python -m learning_embeddings_tpu_torch.cli.ethec_experiments \\
         --data_dir <splits> --image_dir <images> --experiment_dir <dir> \\
@@ -18,8 +21,9 @@ from __future__ import annotations
 
 import argparse
 
-from .common import (add_common_flags, inverse_class_weights,
-                     load_ethec_data, manifest_from_args)
+from .common import (add_common_flags, add_loader_flag,
+                     inverse_class_weights, load_ethec_data,
+                     manifest_from_args)
 
 LOSS_MAP = {
     "multi_level": "multi_level_ce",
@@ -75,12 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
                              "per optimizer step (effective batch = "
                              "N x batch_size without the memory).")
     parser.add_argument("--bn_stats_rows", type=int, default=0,
-                        help=">0: ghost-batch BN statistics (not ported: "
-                             "raises).")
+                        help=">0: ghost-batch BN statistics over the first "
+                             "N rows of each batch.")
     parser.add_argument("--bn_stats_dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="dtype of the train-mode BN statistics "
-                             "(bfloat16 is not ported: raises).")
+                             "(bfloat16: each x² and mean rounded to bf16).")
+    add_loader_flag(parser)
     parser.add_argument("--generate_plots", action="store_true",
                         help="PR curves + F1-vs-frequency plots on the "
                              "final test pass")
@@ -92,11 +97,6 @@ def main(args=None):
     from ..train.runner import run_classifier
 
     args = build_parser().parse_args(args)
-    if args.bn_stats_rows > 0 or args.bn_stats_dtype != "float32":
-        raise NotImplementedError(
-            "--bn_stats_rows > 0 (ghost-batch statistics) and "
-            "--bn_stats_dtype bfloat16 are not ported yet (ROADMAP.md "
-            "queue A item 18)")
     if args.spatial_partition:
         raise NotImplementedError(
             "--spatial_partition is not ported yet (ROADMAP.md queue A "
@@ -123,6 +123,8 @@ def main(args=None):
         # --use_2d: 2-d bottleneck + per-level bias-free heads
         head_override="bottleneck2d" if args.use_2d else None,
         freeze_bn=args.freeze_bn,
+        bn_stats_rows=args.bn_stats_rows,
+        bn_stats_dtype=args.bn_stats_dtype,
         grad_accum=args.grad_accum,
         device=args.device,
     )
@@ -145,6 +147,7 @@ def main(args=None):
         n_model=args.n_model,
         input_dtype="float32" if args.f32_input else "uint8",
         profile_steps=args.profile,
+        loader=args.loader,
     )
 
 

@@ -9,8 +9,9 @@ The images load from the idx files under ``--data_root`` (FashionMNIST/raw);
 where they are absent the CLI trains on ``synthetic_array_dataset``, as
 the JAX CLI does. On the card every train step runs the BatchNorm
 reductions of ``ops/bn_triton.py`` (20 + 20 on the default ResNet-18).
-Flags whose feature is not ported raise: ``--n_model > 1`` (ROADMAP.md
-queue A item 21) and ``--bn_stats_rows > 0`` (item 18).
+``--bn_stats_rows N`` takes the ghost-batch statistics route
+(``GhostBatchNorm``). ``--n_model > 1`` raises (not ported: ROADMAP.md
+queue A item 21).
 
     python -m learning_embeddings_tpu_torch.cli.fashion_mnist \\
         --experiment_dir <dir> --experiment_name f --n_epochs 1 \\
@@ -71,8 +72,8 @@ def add_workload_flags(parser: argparse.ArgumentParser) -> None:
                         help="Frozen BN running statistics (no BN kernel "
                              "runs).")
     parser.add_argument("--bn_stats_rows", type=int, default=0,
-                        help=">0: ghost-batch BN statistics (not ported: "
-                             "raises).")
+                        help=">0: ghost-batch BN statistics over the first "
+                             "N rows of each batch.")
     parser.add_argument("--n_model", type=int, default=1,
                         help="Mesh 'model' axis width (not ported: > 1 "
                              "raises).")
@@ -100,10 +101,6 @@ def run_workload(args, labelmap, loader, name: str, size: int,
     from ..train.classifier import ClassifierConfig
     from ..train.runner import run_classifier
 
-    if args.bn_stats_rows > 0:
-        raise NotImplementedError(
-            "--bn_stats_rows > 0 (ghost-batch statistics) is not ported "
-            "yet (ROADMAP.md queue A item 18)")
     try:
         tr_i, tr_l, te_i, te_l = loader(args.data_root)
         images = np.concatenate([tr_i, te_i])
@@ -141,6 +138,7 @@ def run_workload(args, labelmap, loader, name: str, size: int,
         lr_steps=tuple(args.lr_step),
         lr_decay=args.lr_decay,
         freeze_bn=args.freeze_bn,
+        bn_stats_rows=args.bn_stats_rows,
         device=args.device,
     )
     evaluator = args.evaluator if args.loss == "multi_label" else "MLEVAL"

@@ -7,7 +7,11 @@ through ``ImagePipeline`` (the eval transform) and writes
 float32}, the input of the fc7 joint trainer.
 
 BatchNorm runs in inference mode (running statistics), so no BN kernel
-runs. Same flags as the JAX CLI, plus ``--device`` (default cuda).
+runs. Same flags as the JAX CLI, plus ``--device`` (default cuda) and
+``--loader`` (``native``: JPEG files through the C++ loader, which the JAX
+CLI takes by itself for .jpg files). Every backbone of ``BACKBONES``
+runs: ``--model alexnet`` (the reference's fc7 extractor) writes
+4096-wide features, ``vgg11_bn`` 512-wide.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import os
 
 import numpy as np
 
-from .common import add_device_flag, load_ethec_data
+from .common import add_device_flag, add_loader_flag, load_ethec_data
 
 
 def build_parser():
@@ -35,6 +39,7 @@ def build_parser():
     parser.add_argument("--image_size", type=int, default=448)
     parser.add_argument("--batch_size", type=int, default=64)
     parser.add_argument("--n_workers", type=int, default=8)
+    add_loader_flag(parser)
     add_device_flag(parser)
     return parser
 
@@ -45,14 +50,10 @@ def load_trunk(model: str, experiment_load_dir, device):
     best_model, or initialised from seed 0 without one."""
     import torch
 
-    from ..models.resnet import BACKBONES, init_params_
+    from ..models.resnet import init_params_, make_trunk
     from ..train.experiment import Checkpointer, ExperimentDir
 
-    if model not in BACKBONES:
-        raise NotImplementedError(
-            f"backbone {model!r} is not ported yet; ported: "
-            f"{sorted(BACKBONES)} (ROADMAP.md queue A item 18)")
-    trunk = BACKBONES[model]()
+    trunk = make_trunk(model)
     init_params_(trunk, torch.Generator().manual_seed(0))
     if experiment_load_dir:
         exp = ExperimentDir(*os.path.split(experiment_load_dir.rstrip("/")))
@@ -84,7 +85,8 @@ def main(args=None):
         pipe = ImagePipeline(ds, labelmap, args.image_dir,
                              image_size=args.image_size,
                              batch_size=args.batch_size, train=False,
-                             num_workers=args.n_workers, out_dtype="uint8")
+                             num_workers=args.n_workers, out_dtype="uint8",
+                             loader=args.loader)
         feats = []
         with torch.no_grad():
             for batch in pipe.batches(np.arange(len(ds))):

@@ -1,8 +1,10 @@
 """Package data (the frozen Butterfly200 taxonomy, a copy of the JAX
 package's ``data/butterfly200_taxonomy.json``), the ETHEC records
 (``records.py``), the index samplers (``sampling.py``), the host input
-pipeline (``pipeline.py``) and the CIFAR / FashionMNIST workloads
-(``workloads.py``)."""
+pipeline (``pipeline.py``, with the C++ JPEG loader of
+``native_loader.py``), the CIFAR / FashionMNIST workloads
+(``workloads.py``) and the offline tools: image crops (``preprocess.py``)
+and the database build (``build_db.py``)."""
 
 from .pipeline import ImagePipeline
 from .records import (

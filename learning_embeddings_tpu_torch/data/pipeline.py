@@ -14,9 +14,12 @@ package, so the crops and flips are the same there and here.
 
 Images decode with cv2 where it imports, else with PIL, as in the JAX
 module; both are imported inside the functions, so importing the package
-needs neither. Only this Python decode path is ported: the JAX pipeline
-switches to its native JPEG loader for .jpg files, which the port does
-not (ROADMAP.md queue A item 27).
+needs neither. ``ImagePipeline(loader='native')`` decodes and augments
+JPEG files in the C++ loader of ``data/native_loader.py`` instead (one
+fused pass on its own threads, with random crops and flips of its own
+generator). The JAX pipeline switches to that loader by itself
+for .jpg files; the port takes it only when asked, and raises where it
+cannot run.
 """
 
 from __future__ import annotations
@@ -30,11 +33,14 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
-__all__ = ["ImagePipeline", "decode_image", "augment_train",
+__all__ = ["ImagePipeline", "LOADERS", "decode_image", "augment_train",
            "augment_random_resized_crop", "augment_eval",
            "augment_joint_train", "prefetch_one"]
 
 _PREFETCH_END = object()
+#: decode paths of ``ImagePipeline``: cv2/PIL in Python threads, or the
+#: C++ JPEG loader
+LOADERS = ("python", "native")
 #: batches an ``ImagePipeline`` epoch holds ready ahead of its consumer
 PIPELINE_PREFETCH = 4
 
@@ -171,15 +177,33 @@ class ImagePipeline:
     under `image_root`) or an in-memory dataset with an ``images`` array;
     yields dict batches {image, level_labels, leaf_labels, multihot,
     index}. The order comes from the caller (shuffle or weighted
-    resampling)."""
+    resampling).
+
+    ``loader='native'`` reads JPEG files through ``data/native_loader.py``
+    (the JAX package's fast path, ``pipeline.py:185-193, 254-268``): decode,
+    resize, crop, flip and scale in one C++ pass. Its uint8 batches round
+    once more than its float32 ones (the fused pass rounds only the
+    output), where the Python path's are bit-identical. It takes files
+    only, with the 'ethec' transform."""
 
     def __init__(self, dataset, labelmap, image_root: str, *,
                  image_size: int = 448, batch_size: int = 64,
                  train: bool = True, grayscale: bool = False,
                  num_workers: int = 8, augment: str = "ethec",
-                 out_dtype: str = "float32"):
+                 out_dtype: str = "float32", loader: str = "python"):
         if augment not in ("ethec", "rrc"):
             raise ValueError(f"unknown augment {augment!r}")
+        if loader not in LOADERS:
+            raise ValueError(f"unknown loader {loader!r}; expected {LOADERS}")
+        if loader == "native":
+            if hasattr(dataset, "images") or augment != "ethec":
+                raise ValueError("loader='native' reads image files with "
+                                 "the 'ethec' transform only")
+            bad = [p for p in dataset.image_paths
+                   if not p.lower().endswith((".jpg", ".jpeg"))]
+            if bad:
+                raise ValueError(f"loader='native' decodes JPEG files "
+                                 f"only, got {bad[:3]}")
         self.ds = dataset
         self.labelmap = labelmap
         self.image_root = image_root
@@ -190,6 +214,7 @@ class ImagePipeline:
         self.num_workers = num_workers
         self.augment = augment
         self.out_dtype = out_dtype
+        self.loader = loader
         self._multihot = dataset.multihot(labelmap)
 
     def __len__(self):
@@ -216,6 +241,22 @@ class ImagePipeline:
                 np.clip(np.round(img), 0, 255).astype(np.uint8)
         return img.astype(np.float32) / 255.0
 
+    def _load_native(self, idx: np.ndarray, seed: int) -> np.ndarray:
+        from . import native_loader
+
+        paths = [os.path.join(self.image_root, self.ds.image_paths[i])
+                 for i in idx]
+        images, status = native_loader.load_augment_batch(
+            paths, self.size, pad=64, train=self.train,
+            grayscale=self.grayscale, seed=seed,
+            out_dtype=np.uint8 if self.out_dtype == "uint8" else np.float32)
+        if (status != 0).any():
+            bad = np.nonzero(status)[0][:3]
+            raise FileNotFoundError(
+                f"native loader failed on {[paths[j] for j in bad]} (codes "
+                f"{status[bad]})")
+        return images
+
     def batches(self, order: np.ndarray, seed: int = 0) -> Iterator[dict]:
         """Batches in `order` (a precomputed index sequence). Training
         drops the ragged tail, so every train batch has the full size."""
@@ -230,10 +271,14 @@ class ImagePipeline:
                     if stop.is_set():
                         return
                     idx = order[b * bs:(b + 1) * bs]
-                    images = np.stack(list(pool.map(
-                        lambda t: self._load_one(t[1],
-                                                 seed * 1_000_003 + t[0]),
-                        enumerate(idx, start=b * bs))))
+                    if self.loader == "native":
+                        images = self._load_native(
+                            idx, seed * 1_000_003 + b * bs)
+                    else:
+                        images = np.stack(list(pool.map(
+                            lambda t: self._load_one(
+                                t[1], seed * 1_000_003 + t[0]),
+                            enumerate(idx, start=b * bs))))
                     _put_until_stopped(out_q, {
                         "image": images,
                         "level_labels": self.ds.level_labels[idx],

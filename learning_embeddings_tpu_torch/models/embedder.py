@@ -17,7 +17,7 @@
 * ``MatrixApproximation``  a low-parameter projector
   x[..., :dim]·diag + (x·v)·u (parameters ``diag`` = 1, ``u`` and ``v`` ~
   N(0, 0.01²)) → geometry map.
-* ``FeatCNN``       ResNet trunk (``trunk``) → ``nn.Linear(feature_dim,
+* ``FeatCNN``       backbone trunk (``trunk``) → ``nn.Linear(feature_dim,
   dim)`` named ``fc`` in f32 → geometry map. It takes NCHW images in
   channels_last memory, as ``HierarchicalCNN`` does.
 """
@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from ..geometry import exp_map_zero_shifted, inner_radius, project_annulus
-from .resnet import BACKBONES, init_params_
+from .resnet import init_params_, make_trunk
 
 __all__ = ["LabelEmbedder", "FeatNet", "MatrixApproximation", "FeatCNN",
            "geometry_map", "hyperbolic_init", "MODES"]
@@ -135,20 +135,20 @@ class MatrixApproximation(nn.Module):
 class FeatCNN(nn.Module):
     """End-to-end image tower: CNN trunk → dim projection → geometry map.
 
-    The trunk computes in `dtype` with f32 parameters and returns f32
-    pooled features; ``fc`` and the geometry map run in f32."""
+    The trunk (any of ``BACKBONES``; `remat` and `bn_stats_dtype` as in
+    ``models/resnet.py``) computes in `dtype` with f32 parameters and
+    returns f32 pooled features; ``fc`` and the geometry map run in
+    f32."""
 
     def __init__(self, backbone: str, dim: int, mode: str = "euclidean",
                  K: Optional[float] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+                 bn_stats_dtype: str = "float32"):
         super().__init__()
         _check_mode(mode)
-        if backbone not in BACKBONES:
-            raise NotImplementedError(
-                f"backbone {backbone!r} is not ported yet; ported: "
-                f"{sorted(BACKBONES)} (ROADMAP.md queue A item 18)")
         self.mode, self.K = mode, K
-        self.trunk = BACKBONES[backbone](dtype=dtype)
+        self.trunk = make_trunk(backbone, dtype=dtype, remat=remat,
+                                bn_stats_dtype=bn_stats_dtype)
         self.fc = nn.Linear(self.trunk.feature_dim, dim)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .resnet import BACKBONES
+from .resnet import make_trunk
 
 __all__ = ["HierarchicalCNN", "HEADS"]
 
@@ -30,7 +30,8 @@ BOTTLENECK_DIM = 2
 
 
 class HierarchicalCNN(nn.Module):
-    """ResNet trunk (`trunk`) + a head.
+    """Backbone trunk (`trunk`: any of ``BACKBONES``, with the remat,
+    stem and BatchNorm options of ``models/resnet.py``) + a head.
 
     Takes NCHW images (channels_last memory on the card) with
     `in_channels` channels (1 for grayscale) and returns raw f32 scores:
@@ -41,17 +42,20 @@ class HierarchicalCNN(nn.Module):
 
     def __init__(self, backbone: str, levels: Sequence[int],
                  head: str = "multi_head",
-                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
+                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3,
+                 remat: bool = False, stem: str = "conv7",
+                 bn_stats_rows: int = 0, bn_impl: str = "pallas",
+                 bn_stats_dtype: str = "float32"):
         super().__init__()
         if head not in HEADS:
             raise ValueError(f"unknown head {head!r}; expected {HEADS}")
-        if backbone not in BACKBONES:
-            raise NotImplementedError(
-                f"backbone {backbone!r} is not ported yet; ported: "
-                f"{sorted(BACKBONES)} (ROADMAP.md queue A item 18)")
         self.levels = tuple(int(n) for n in levels)
         self.head = head
-        self.trunk = BACKBONES[backbone](dtype=dtype, in_channels=in_channels)
+        self.trunk = make_trunk(backbone, dtype=dtype,
+                                in_channels=in_channels, remat=remat,
+                                stem=stem, bn_stats_rows=bn_stats_rows,
+                                bn_impl=bn_impl,
+                                bn_stats_dtype=bn_stats_dtype)
         feat = self.trunk.feature_dim
         if head == "bottleneck2d":
             self.bottleneck = nn.Linear(feat, BOTTLENECK_DIM)

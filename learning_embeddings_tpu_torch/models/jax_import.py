@@ -12,6 +12,8 @@ label table and the fc7 path's image projectors (``FeatNet``: Dense
   conv kernel   HWIO → OIHW          Dense kernel (in, out) → weight (out, in)
   BN scale/bias/mean/var → weight/bias/running_mean/running_var
   layer{i}_{j}  → layer{i}.{j}       downsample_conv/bn → downsample.0/.1
+  AlexNet / VGG11BN: Conv_k → conv{k}, Dense_k → dense{k},
+  BatchNorm_k / GhostBatchNorm_k → bn{k}
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of the
 variables); nothing here imports JAX.
@@ -29,12 +31,15 @@ __all__ = ["state_dict_from_jax", "label_table_from_jax",
 
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
-                        stage_sizes: Sequence[int]) -> Dict[str, torch.Tensor]:
+                        stage_sizes: Sequence[int] = ()
+                        ) -> Dict[str, torch.Tensor]:
     """State dict for the port's ``HierarchicalCNN`` or ``FeatCNN`` from
     the JAX model's ``params`` ({"trunk": ..., "fc": ...} or another
     head's Dense layers) and
     ``batch_stats`` ({"trunk": ...}); loads with
-    ``load_state_dict(strict=True)``."""
+    ``load_state_dict(strict=True)``. `stage_sizes` are a ResNet trunk's
+    (the s2d ``conv1`` carries over as it is: the port's space-to-depth
+    keeps JAX's channel order); AlexNet and VGG11BN trunks need none."""
     out: Dict[str, torch.Tensor] = {}
 
     def put(name, arr):
@@ -49,9 +54,23 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
         put(f"{name}.running_mean", s["mean"])
         put(f"{name}.running_var", s["var"])
 
-    tp, ts = params["trunk"], batch_stats["trunk"]
-    conv("trunk.conv1", tp["conv1"])
-    bn("trunk.bn1", tp["bn1"], ts["bn1"])
+    tp, ts = params["trunk"], batch_stats.get("trunk", {})
+    if "conv1" not in tp:       # AlexNet / VGG11BN: flax's auto names
+        for name, p in tp.items():
+            kind, k = name.rsplit("_", 1)
+            if kind == "Conv":
+                conv(f"trunk.conv{k}", p)
+                if "bias" in p:
+                    put(f"trunk.conv{k}.bias", p["bias"])
+            elif kind == "Dense":
+                put(f"trunk.dense{k}.weight", np.asarray(p["kernel"]).T)
+                put(f"trunk.dense{k}.bias", p["bias"])
+            else:               # BatchNorm_k or GhostBatchNorm_k
+                bn(f"trunk.bn{k}", p, ts[name])
+        stage_sizes = ()
+    else:
+        conv("trunk.conv1", tp["conv1"])
+        bn("trunk.bn1", tp["bn1"], ts["bn1"])
     for i, n_blocks in enumerate(stage_sizes):
         for j in range(n_blocks):
             ours = f"trunk.layer{i + 1}.{j}"

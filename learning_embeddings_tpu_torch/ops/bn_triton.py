@@ -40,8 +40,14 @@ only: this module imports on a host with no Triton. The compiled kernels
 are cached under ``<checkout>/.torch_kernels/triton`` (gitignored) unless
 ``TRITON_CACHE_DIR`` says otherwise.
 
+``bn_stats(x2, round_sq=True)`` is the variant that the bf16 statistics of
+the JAX package's ``GhostBatchNorm`` (``models/resnet.py:88-93``) need:
+each x² is rounded to bf16 before it is summed, as ``xs * xs`` rounds in
+a bf16 array, through a ``constexpr`` switch of the same kernel.
+
 Each wrapper adds one to its launch count (``STATS_LAUNCHES``,
-``CORR_LAUNCHES``) where it launches its kernel, and nowhere else.
+``CORR_LAUNCHES``) where it launches its kernel, and nowhere else; a
+launch of the rounding variant also counts in ``STATS_ROUNDED_LAUNCHES``.
 """
 
 import contextlib
@@ -55,11 +61,14 @@ os.environ.setdefault(
     os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), ".torch_kernels", "triton"))
 
-__all__ = ["bn_stats", "bn_corr", "STATS_LAUNCHES", "CORR_LAUNCHES"]
+__all__ = ["bn_stats", "bn_corr", "STATS_LAUNCHES", "CORR_LAUNCHES",
+           "STATS_ROUNDED_LAUNCHES"]
 
 #: launches of the bn_stats / bn_corr kernels since import (or last reset)
 STATS_LAUNCHES = 0
 CORR_LAUNCHES = 0
+#: the bn_stats launches with round_sq=True (also counted in STATS_LAUNCHES)
+STATS_ROUNDED_LAUNCHES = 0
 
 #: elements of one (BLOCK_R, BLOCK_C) tile: 2 f32 accumulators of this size
 #: over 4 warps keep the register use near 130 a thread
@@ -82,7 +91,8 @@ def _kernels():
 
     @triton.jit
     def bn_stats_kernel(x_ptr, part_ptr, R, C,
-                        BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
+                        BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
+                        ROUND_SQ: tl.constexpr):
         pid_c = tl.program_id(0)
         pid_s = tl.program_id(1)
         n_splits = tl.num_programs(1)
@@ -96,7 +106,10 @@ def _kernels():
             offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
             x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
             acc_s += x
-            acc_q += x * x
+            if ROUND_SQ:   # x² rounded to bf16 (nearest even), then summed
+                acc_q += (x * x).to(tl.bfloat16).to(tl.float32)
+            else:
+                acc_q += x * x
         out = pid_s * C + cols
         tl.store(part_ptr + out, tl.sum(acc_s, axis=0), mask=cmask)
         tl.store(part_ptr + n_splits * C + out, tl.sum(acc_q, axis=0),
@@ -168,7 +181,7 @@ def _geometry(R: int, C: int, device_index: int):
     return block_r, block_c, n_splits, (-(-C // block_c), n_splits)
 
 
-def _launch(kernel, name: str, *ts: torch.Tensor):
+def _launch(kernel, name: str, *ts: torch.Tensor, **constexprs):
     R, C = _check(name, *ts)
     dev = ts[0].device
     block_r, block_c, n_splits, grid = _geometry(R, C, dev.index)
@@ -178,17 +191,19 @@ def _launch(kernel, name: str, *ts: torch.Tensor):
     guard = contextlib.nullcontext() if same else torch.cuda.device(dev)
     with guard:
         kernel[grid](*ts, part, R, C, BLOCK_R=block_r, BLOCK_C=block_c,
-                     num_warps=_NUM_WARPS)
+                     num_warps=_NUM_WARPS, **constexprs)
     first, second = part.sum(dim=1)
     return first, second
 
 
-def bn_stats(x2: torch.Tensor):
-    """Σx and Σx² over the rows of a CUDA (R, C) matrix, in f32."""
-    global STATS_LAUNCHES
+def bn_stats(x2: torch.Tensor, round_sq: bool = False):
+    """Σx and Σx² over the rows of a CUDA (R, C) matrix, in f32; with
+    `round_sq` each x² is rounded to bf16 before the sum."""
+    global STATS_LAUNCHES, STATS_ROUNDED_LAUNCHES
     stats_kernel, _ = _kernels()
-    out = _launch(stats_kernel, "bn_stats", x2)
+    out = _launch(stats_kernel, "bn_stats", x2, ROUND_SQ=bool(round_sq))
     STATS_LAUNCHES += 1
+    STATS_ROUNDED_LAUNCHES += bool(round_sq)
     return out
 
 

@@ -23,8 +23,10 @@ no gradient, so no backward pass runs through it, while its BN running
 statistics still move in train mode), ``grad_accum`` (k micro-batches
 average into one optimizer update, as ``optax.MultiSteps`` does; the BN
 statistics update on every micro-batch), grayscale input and
-``load_backbone_state_dict``. ``bn_impl='pallas'`` (the fused-reduction
-BatchNorm) is the only BatchNorm (ROADMAP.md queue A item 18).
+``load_backbone_state_dict``; the trunk options ``remat``, ``stem`` and
+the BatchNorm routes of ``ops/bn.py``: ``bn_stats_rows`` /
+``bn_stats_dtype`` (``GhostBatchNorm``) before ``bn_impl`` ('pallas', the
+fused reductions, the port's default; 'flax', the library's BatchNorm).
 
 State: PyTorch updates in place, which is what the JAX step's buffer
 donation amounts to. ``train_step`` returns the state it was given, with
@@ -50,12 +52,13 @@ from ..losses.classification import (
     multi_label_soft_margin,
 )
 from ..models.heads import HierarchicalCNN
-from ..models.resnet import init_params_
+from ..models.resnet import init_params_, s2d_stem_kernel
+from ..ops.bn import BN_IMPLS, make_norm
 from ..ops.image import device_scale
 
 __all__ = ["ClassifierConfig", "ClassifierTrainer", "TrainState",
            "make_criterion", "resolve_device", "CRITERIA",
-           "CRITERION_TO_HEAD"]
+           "CRITERION_TO_HEAD", "BN_IMPLS"]
 
 CRITERIA = ("multi_level_ce", "last_level_ce", "masked_ce",
             "multi_label_sm", "hsoftmax")
@@ -67,9 +70,6 @@ CRITERION_TO_HEAD = {
     "multi_label_sm": "multi_head",
     "hsoftmax": "hsoftmax",
 }
-
-BN_IMPLS = ("pallas",)
-
 
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; raises if it names CUDA and no card is
@@ -99,9 +99,14 @@ class ClassifierConfig:
     seed: int = 0
     dtype: torch.dtype = torch.bfloat16  # trunk activations; params are f32
     head_override: Optional[str] = None  # e.g. 'bottleneck2d' (--use_2d)
+    remat: bool = False  # recompute residual blocks in backward (memory)
+    stem: str = "conv7"  # 's2d' = space-to-depth stem (equivalent)
     freeze_bn: bool = False  # train with BN in inference mode (frozen
     #                          running statistics; runs no BN kernel)
-    bn_impl: str = "pallas"  # the fused-reduction BN (ops.bn + ops.bn_triton)
+    bn_stats_rows: int = 0   # >0: ghost-batch BN statistics (GhostBatchNorm)
+    bn_impl: str = "pallas"  # 'pallas' = fused-reduction BN (ops.bn +
+    #                          ops.bn_triton); 'flax' = the library's BN
+    bn_stats_dtype: str = "float32"  # 'bfloat16' = bf16 BN statistics
     grad_accum: int = 1      # micro-batches per optimizer update
     device: str = "cuda"
 
@@ -157,11 +162,9 @@ def make_criterion(labelmap: LabelMap, cfg: ClassifierConfig):
     raise ValueError(f"unknown criterion {name!r}; expected {CRITERIA}")
 
 
-def _check_ported(cfg: ClassifierConfig) -> None:
-    if cfg.bn_impl not in BN_IMPLS:
-        raise NotImplementedError(
-            f"bn_impl={cfg.bn_impl!r} is not ported yet; ported: "
-            f"{BN_IMPLS} (ROADMAP.md queue A item 18)")
+def _check_options(cfg: ClassifierConfig) -> None:
+    # the BatchNorm route is checked for every backbone, AlexNet's too
+    make_norm(cfg.bn_impl, cfg.bn_stats_rows, cfg.bn_stats_dtype)
     if cfg.optimizer not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     if cfg.grad_accum < 1:
@@ -174,7 +177,7 @@ class ClassifierTrainer:
 
     def __init__(self, labelmap: LabelMap, cfg: ClassifierConfig,
                  grayscale: bool = False):
-        _check_ported(cfg)
+        _check_options(cfg)
         self.labelmap = labelmap
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
@@ -183,7 +186,9 @@ class ClassifierTrainer:
         model = HierarchicalCNN(
             backbone=cfg.backbone, levels=tuple(labelmap.levels),
             head=cfg.head_override or CRITERION_TO_HEAD[cfg.criterion],
-            dtype=cfg.dtype, in_channels=self.n_channels)
+            dtype=cfg.dtype, in_channels=self.n_channels, remat=cfg.remat,
+            stem=cfg.stem, bn_stats_rows=cfg.bn_stats_rows,
+            bn_impl=cfg.bn_impl, bn_stats_dtype=cfg.bn_stats_dtype)
         init_params_(model, torch.Generator().manual_seed(cfg.seed))
         model.to(device=self.device, memory_format=torch.channels_last)
         if cfg.freeze_trunk:
@@ -249,13 +254,16 @@ class ClassifierTrainer:
         reference's pretrained=True backbones; --load_backbone_from). The
         port's names are torchvision's: the file's ``fc.*`` and
         ``num_batches_tracked`` entries are dropped and the rest loads
-        strictly. A grayscale trunk keeps its fresh ``conv1``."""
+        strictly. Under ``stem='s2d'`` the 7×7 ``conv1`` is converted with
+        ``s2d_stem_kernel``; a grayscale trunk keeps its fresh ``conv1``."""
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if hasattr(sd, "state_dict"):
             sd = sd.state_dict()
         sd = {k: v for k, v in sd.items() if not k.startswith("fc.")
               and not k.endswith("num_batches_tracked")}
         trunk = self.state.model.trunk
+        if self.cfg.stem == "s2d":
+            sd["conv1.weight"] = s2d_stem_kernel(sd["conv1.weight"])
         if self.n_channels != 3:
             sd["conv1.weight"] = trunk.conv1.weight.detach()
         trunk.load_state_dict(sd, strict=True)

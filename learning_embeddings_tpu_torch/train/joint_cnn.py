@@ -31,9 +31,10 @@ energy, the kernel of ``ops/pairwise_order.py`` on the card; the cone
 energies through their Gram form.
 
 Ported: the ``order``, ``euc_cone`` and ``hyp_cone`` energies with every
-label optimizer, and the warm start of the tower's trunk from a classifier
-checkpoint (``load_tower_trunk``). Not yet (ROADMAP.md): meshes (queue A
-item 21), ``remat`` and ``bn_stats_dtype`` other than float32 (item 18).
+label optimizer, every backbone of ``models/resnet.py``, ``remat`` and
+``bn_stats_dtype`` (the tower's trunk options), and the warm start of the
+tower's trunk from a classifier checkpoint (``load_tower_trunk``). Not yet
+(ROADMAP.md): meshes (queue A item 21).
 """
 
 from __future__ import annotations
@@ -82,14 +83,16 @@ class JointCNNConfig:
     seed: int = 0
     K: Optional[float] = None
     tower_dtype: str = "bfloat16"  # the trunk's activations; params are f32
-    bn_stats_dtype: str = "float32"     # only float32 is ported
+    bn_stats_dtype: str = "float32"  # 'bfloat16' = bf16 BN statistics
+    #   in the tower (GhostBatchNorm over all rows)
     pixel_bucket: Optional[int] = None  # unique-image pad granularity;
     #   default batch_size
     prefetch: bool = True  # overlap host batch prep with the device step
     #   through a one-deep background thread
     inflight_steps: int = 4  # wait for the loss this many steps back, so
     #   at most this many steps' inputs stay queued on the device
-    remat: bool = False                 # not ported: raises if True
+    remat: bool = False  # recompute the tower's residual blocks in the
+    #   backward pass (activation memory against recompute)
     freeze_bn: bool = False  # eval-mode BN in the tower (runs no BN kernel)
     freeze_images: bool = False  # only the tower's `fc` trains; the trunk's
     #   running statistics still move in train mode
@@ -107,10 +110,6 @@ class JointCNNTrainer(JointOptimization):
         if mesh is not None:
             raise NotImplementedError(
                 "meshes are not ported yet (ROADMAP.md queue A item 21)")
-        if cfg.remat or cfg.bn_stats_dtype != "float32":
-            raise NotImplementedError(
-                "remat and bn_stats_dtype != 'float32' are not ported yet "
-                "(ROADMAP.md queue A item 18)")
         check_joint_options(cfg)
         self.labelmap = labelmap
         self.graph = graph
@@ -126,7 +125,9 @@ class JointCNNTrainer(JointOptimization):
                                       mode=mode, K=self.K, generator=gen)
         self.featcnn = FeatCNN(cfg.backbone, cfg.embedding_dim, mode=mode,
                                K=self.K,
-                               dtype=getattr(torch, cfg.tower_dtype))
+                               dtype=getattr(torch, cfg.tower_dtype),
+                               remat=cfg.remat,
+                               bn_stats_dtype=cfg.bn_stats_dtype)
         init_params_(self.featcnn, gen)
         self.embedder.to(self.device)
         self.featcnn.to(device=self.device,

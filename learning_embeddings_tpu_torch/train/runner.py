@@ -149,7 +149,8 @@ def run_classifier(
     profile_steps: int = 0,
     input_dtype: str = "uint8",   # host→device transfer format; 'uint8'
     #   moves raw pixels and scales on the device, bit-identical to
-    #   'float32' on this pipeline
+    #   'float32' on the Python decode path
+    loader: str = "python",   # 'native': the C++ JPEG loader (JPEG files)
 ):
     """The classifier experiment; returns {best_val_score, best_epoch,
     test_metrics, experiment} as the JAX runner does, plus the per-class
@@ -187,7 +188,7 @@ def run_classifier(
             ds, labelmap, image_root, image_size=cfg.image_size,
             batch_size=cfg.batch_size, train=(split == "train"),
             grayscale=use_grayscale, num_workers=n_workers, augment=augment,
-            out_dtype=input_dtype)
+            out_dtype=input_dtype, loader=loader)
         for split, ds in datasets.items()
     }
     resampler = (WeightedResampler(datasets["train"].leaf_labels,

@@ -215,10 +215,12 @@ def test_cuda_is_never_replaced_by_the_cpu():
         port_entry.entry()
 
 
-@pytest.mark.parametrize("bad", [dict(bn_impl="flax"),
-                                 dict(backbone="vgg11_bn")])
+@pytest.mark.parametrize("bad", [dict(bn_impl="cudnn"),
+                                 dict(backbone="vgg16")])
 def test_unported_options_raise(bad):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # bn_impl='flax' and vgg11_bn are ported; a route or backbone that
+    # neither package has raises
+    with pytest.raises(ValueError, match="bn_impl|backbone"):
         ClassifierTrainer(toy_labelmap(2, 2), ClassifierConfig(**{
             "backbone": "resnet18", "image_size": 32, "device": "cpu",
             **bad}))

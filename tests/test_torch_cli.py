@@ -202,15 +202,24 @@ def _flags(parser):
             for a in parser._actions if a.dest != "help"}
 
 
+#: port-only flags besides --device: the decode path, asked for by name
+#: (the JAX CLIs take their native JPEG loader by themselves)
+PORT_ONLY = {"oe": {"loader"}, "oe_h": {"loader"}}
+LOADER_SPEC = (("--loader",), "_StoreAction", None, "python", None,
+               ["python", "native"], False)
+
+
 @pytest.mark.parametrize("name", sorted(PARSERS))
 def test_parser_has_the_jax_flags_plus_device(name, splits_dir_set):
     jax_build, port_build = PARSERS[name]
     want, got = _flags(jax_build()), _flags(port_build())
-    assert set(got) == set(want) | {"device"}
+    assert set(got) == set(want) | {"device"} | PORT_ONLY.get(name, set())
     for dest, spec in want.items():
         assert got[dest] == spec, dest
     assert got["device"] == (("--device",), "_StoreAction", str, "cuda",
                              None, None, False)
+    if name in PORT_ONLY:
+        assert got["loader"] == LOADER_SPEC
 
 
 # ----------------------------------------------------------------------

@@ -386,3 +386,102 @@ def test_inference_on_the_card_matches_the_cpu(gen):
     assert out["cuda"][0].shape == (lm.n_levels, 4, 4)   # patch 16, stride 16
     for got, want in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("R,C", [(12345, 100), (401408, 64), (25088, 2048)])
+def test_bn_stats_bf16_rounding_variant_matches_plain(gen, R, C):
+    """K1's rounding variant (each x² rounded to bf16 before the sum, the
+    bf16 BatchNorm statistics): equal to its plain version on values whose
+    squares and sums are exact, within 1e-5·Σ|terms| on normal ones, and
+    counted as a K1 launch."""
+    before = (bn_triton.STATS_LAUNCHES, bn_triton.STATS_ROUNDED_LAUNCHES)
+    ints = torch.randint(-3, 4, (R, C), device="cuda", generator=gen) \
+        .to(torch.bfloat16)
+    for g, w in zip(bn_triton.bn_stats(ints, True),
+                    bn._stats_plain(ints, True)):
+        assert torch.equal(g, w)
+    x = torch.randn((R, C), device="cuda", generator=gen).to(torch.bfloat16)
+    got, want = bn_triton.bn_stats(x, True), bn._stats_plain(x, True)
+    mag = bn._stats_plain(x.float().abs(), True)
+    for g, w, m in zip(got, want, mag):
+        assert bool(((g - w).abs() <= 1e-5 * m + 1e-6).all())
+    # the rounding shows: Σ round(x²) is not Σ x²
+    assert not torch.equal(got[1], bn._stats_plain(x)[1])
+    torch.cuda.synchronize()
+    assert (bn_triton.STATS_LAUNCHES, bn_triton.STATS_ROUNDED_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_ghost_batch_norm_reads_a_row_prefix_on_the_card(gen):
+    """GhostBatchNorm on the card: K1 on the first stats_rows images (with
+    the rounding variant for bf16 statistics), K2 on all rows, and the
+    same y, statistics and gradients as the CPU path."""
+    from learning_embeddings_tpu_torch.ops.bn import GhostBatchNorm
+
+    x = torch.randn((16, 64, 28, 28), generator=torch.Generator()
+                    .manual_seed(0)).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)) \
+        .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    for stats_dtype in (torch.float32, torch.bfloat16):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            m = GhostBatchNorm(64, torch.bfloat16, 8, stats_dtype).to(dev)
+            tx = x.to(dev, copy=True).requires_grad_(True)
+            seen = []
+            launch = bn_triton._launch
+
+            def record(kernel, name, *ts, **kw):
+                seen.append((name, tuple(ts[0].shape), kw))
+                return launch(kernel, name, *ts, **kw)
+            bn_triton._launch = record
+            try:
+                y = m.train()(tx)
+                y.backward(dy.to(dev))
+            finally:
+                bn_triton._launch = launch
+            out[dev] = [t.detach().float().cpu() for t in
+                        (y, tx.grad, m.weight.grad, m.bias.grad,
+                         m.running_mean, m.running_var)]
+            if dev == "cuda":
+                assert seen == [
+                    ("bn_stats", (8 * 28 * 28, 64),
+                     {"ROUND_SQ": stats_dtype == torch.bfloat16}),
+                    ("bn_corr", (16 * 28 * 28, 64), {})]
+        for a, b in zip(out["cuda"], out["cpu"]):
+            assert torch.allclose(a, b, rtol=1e-2,
+                                  atol=1e-2 * b.abs().max().item())
+
+
+def _resnet50_step_counts(**cfg_kw):
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig, ClassifierTrainer)
+
+    lm = toy_labelmap(2, 3)
+    tr = ClassifierTrainer(lm, ClassifierConfig(
+        backbone="resnet50", image_size=64, batch_size=4, device="cuda",
+        **cfg_kw))
+    rng = np.random.RandomState(0)
+    ll = lm.leaf_paths()[rng.randint(0, lm.levels[-1], 4)]
+    b = tr.put_batch(rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8),
+                     ll, np.zeros((4, lm.n_classes), np.float32))
+    before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES)
+    _, loss = tr.train_step(tr.state, *b)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    return (bn_triton.STATS_LAUNCHES - before[0],
+            bn_triton.CORR_LAUNCHES - before[1])
+
+
+def test_remat_step_launch_counts(gen):
+    """A ResNet-50 step with remat: K1 53 + 52 times (the 52 block
+    BatchNorms recompute their forward in the backward pass; the stem's
+    does not), K2 53 times."""
+    assert _resnet50_step_counts(remat=True) == (105, 53)
+    assert _resnet50_step_counts() == (53, 53)
+
+
+def test_flax_route_launches_no_bn_kernel(gen):
+    assert _resnet50_step_counts(bn_impl="flax") == (0, 0)
+    assert _resnet50_step_counts(bn_impl="flax", bn_stats_rows=2) == (53, 53)

@@ -63,7 +63,11 @@ def test_port_has_the_slice_modules():
                 "utils/tblog.py", "hierarchy/stats.py", "data/workloads.py",
                 "cli/inference.py", "cli/post_process.py",
                 "cli/convert_tblog.py", "cli/fashion_mnist.py",
-                "cli/cifar.py"]:
+                "cli/cifar.py",
+                # slice 9
+                "csrc/le_loader.cc", "csrc/Makefile",
+                "data/native_loader.py", "data/preprocess.py",
+                "data/build_db.py", "cli/debug_launchers.py"]:
         assert (PORT / rel).is_file(), rel
     assert (ROOT / "chip_smoke.py").is_file()
 
@@ -120,6 +124,20 @@ def test_optional_libraries_only_imported_inside_functions(path):
                 and not name.startswith("torch.utils.tensorboard"), (
                     f"{path.name}:{imp.lineno} imports {name} at import "
                     "time")
+
+
+def test_native_loader_builds_from_the_port_alone():
+    """The port's JPEG loader compiles its own copy of the source into the
+    checkout's .torch_kernels, never the JAX package's native/."""
+    from learning_embeddings_tpu_torch.data import native_loader
+    assert pathlib.Path(native_loader._CSRC) == PORT / "csrc"
+    assert pathlib.Path(native_loader._LIB_PATH).parent == \
+        ROOT / ".torch_kernels" / "native"
+    rules = [line for line in (PORT / "csrc" / "Makefile").read_text()
+             .splitlines() if not line.startswith("#")]
+    assert any("le_loader.cc" in line for line in rules)
+    assert not any("/native" in line.replace(".torch_kernels/native", "")
+                   for line in rules)
 
 
 def test_cpu_path_never_builds_or_loads_the_cuda_library(monkeypatch):

@@ -164,14 +164,13 @@ def test_curriculum_stages(setup):  # noqa: F811
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(backbone="vgg11"), NotImplementedError, "ROADMAP"),
+    (dict(backbone="vgg11"), ValueError, "backbone"),
     (dict(energy="order", optimizer_labels="rsgd"), ValueError,
      "hyperbolic-cone"),
     (dict(energy="euc_cone", optimizer_labels="radam"), ValueError,
      "hyperbolic-cone"),
     (dict(energy="euc_cone", loss_variant="nll"), ValueError, "order"),
-    (dict(remat=True), NotImplementedError, "ROADMAP"),
-    (dict(bn_stats_dtype="bfloat16"), NotImplementedError, "ROADMAP"),
+    (dict(bn_stats_dtype="float16"), ValueError, "bn_stats_dtype"),
 ])
 def test_unported_or_invalid_options_raise(setup, kw, err, match):  # noqa
     with pytest.raises(err, match=match):

@@ -761,9 +761,9 @@ def test_oe_h_fc7_trains_resumes_like_the_jax_cli(fc7_features, tmp_path):
     jres = j_oe_h.main(_fc7_argv(data, images, feats, exp, "j",
                                  "--n_epochs", "2"))
     jm = read_manifest(os.path.join(exp, "j", "config_params.txt"))
-    assert set(manifest) == set(jm) | {"device"}
+    assert set(manifest) == set(jm) | {"device", "loader"}
     assert {k: v for k, v in manifest.items()
-            if k not in ("device", "experiment_name")} == \
+            if k not in ("device", "loader", "experiment_name")} == \
         {k: v for k, v in jm.items() if k != "experiment_name"}
     assert sorted({r["tag"] for r in _metrics(res["experiment"])}) == \
         sorted({r["tag"] for r in _metrics(jres["experiment"])})

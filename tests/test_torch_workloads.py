@@ -283,8 +283,7 @@ def test_cli_runs_one_epoch_like_jax(tmp_path, capsys, native_cpu_convs,
         np.load(os.path.join(jroot, "stats", "correct_labels.npy")))
 
 
-@pytest.mark.parametrize("flags,item", [("--n_model 2", "item 21"),
-                                        ("--bn_stats_rows 4", "item 18")])
+@pytest.mark.parametrize("flags,item", [("--n_model 2", "item 21")])
 @pytest.mark.parametrize("name", sorted(CLIS))
 def test_unported_flags_raise(tmp_path, name, flags, item):
     with pytest.raises(NotImplementedError, match=item):
