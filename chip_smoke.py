@@ -32,7 +32,11 @@ and prints no result line):
             prefixes of ResNet-50@448's 12 shapes (8 rows) and K1's
             bf16-rounding variant (each x² rounded to bf16 before the
             sum) at ResNet-50@448's 12 shapes, each on integer-valued
-            (exact) and normal inputs;
+            (exact) and normal inputs; and for phase 15, K1/K2 at the
+            rows each rank gives them there: ResNet-50@448's 12 shapes at
+            64, 16 and 8 rows, ResNet-18@64's 5 at 4 rows in f32 and at 4
+            and 2 rows in bf16, ResNet-18@32's 5 at 4 rows, each on
+            integer-valued (exact) and normal inputs;
             then batch_norm_train's forward and backward on the card
             against the CPU path, one small classifier train step and one
             small joint step with its eval on the card against the CPU,
@@ -173,6 +177,35 @@ and prints no result line):
             launch) and cli/oe_h.py on those features without --use_CNN;
             (f) the hyperbolic joint step at the BASELINE width with remat
             (105/53 a step) and with bf16 statistics (53/53).
+15. slice 10 multi-GPU, each group of ranks as processes with a time
+            limit (parallel/launch.py; any rank's failure fails the
+            phase): (a) the ResNet-50@448 classifier step, global batch
+            128, on a (2, 1) gloo mesh of two ranks sharing the card (64
+            rows each), 3 steps against the one-process step from the
+            same weights and batches: losses within 1e-2 relative, 53 + 53
+            K1/K2 launches and 53 + 53 BN all-reduces a rank a step, the
+            running statistics equal on both ranks bit for bit; ms/step,
+            peak memory a rank and the collectives' share of a step; (b)
+            the BASELINE hyperbolic joint step (ResNet-50@448, 16 edges,
+            ratio 5) on the same mesh against one process (losses within
+            1e-2), its eval on the mesh (on the start weights: hit@1
+            within 0.01 of one process), its first step again at
+            lr_images 1e-5 with a bf16 and an f32 tower (TF32 off): tower
+            and labels equal on both ranks bit for bit, embeddings within
+            5e-2 of max|·| and hit@1 within 0.01 of one process after the
+            step, and in f32 the tower's moves of one process's sign on at
+            least 95% of the entries it moved; and the order eval's K3
+            tiles at M × 5286, D = 10, on (2, 1) and (1, 2) splits: gathered, equal
+            to the one-process kernel bit for bit, one exact_d launch a
+            rank; (c) a (2, 2) mesh of four ranks, f32 ResNet-18@64 (TF32
+            off), all five criteria on Butterfly200 (the head
+            column-parallel) and on an odd class count (row-parallel):
+            logits within 1e-5 of max|logit| and losses within 1e-5
+            relative of one process;
+            (d) an NCCL group over every card (one on a one-card machine)
+            runs (a)'s step at batch 8 a card and reduces known values;
+            with two or more cards, (a) over them on NCCL, a rank a card;
+            (e) entry.dryrun_multichip(4, device="cuda").
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last is {"ok": true, "device": {...}}. A `kernels` JSON line and the
@@ -208,6 +241,11 @@ RESNET50_448_BN = {
 #: 224² (the CIFAR / FashionMNIST CLIs' default), layers of each shape
 RESNET18_224_BN = {(12544, 64): 1, (3136, 64): 4, (784, 128): 5,
                    (196, 256): 5, (49, 512): 5}
+#: the same at 64² and 32² (phase 15's (2, 2) step and the dryrun twin)
+RESNET18_64_BN = {(1024, 64): 1, (256, 64): 4, (64, 128): 5, (16, 256): 5,
+                  (4, 512): 5}
+RESNET18_32_BN = {(256, 64): 1, (64, 64): 4, (16, 128): 5, (4, 256): 5,
+                  (1, 512): 5}
 RAGGED = (12345, 100)
 KERNEL_SRC = {"bn_stats": "learning_embeddings_tpu_torch/ops/bn_triton.py",
               "bn_corr": "learning_embeddings_tpu_torch/ops/bn_triton.py",
@@ -346,18 +384,21 @@ def n_copies(nbytes):
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
-def check_reduction(name, kernel_fn, plain_fn, library_fn, R, C, n_in, gen):
-    """Integer-valued (exact) and normal bf16 inputs; returns the max abs
+def check_reduction(name, kernel_fn, plain_fn, library_fn, R, C, n_in, gen,
+                    dtype=None):
+    """Integer-valued (exact) and normal inputs of `dtype` (by default
+    bf16); returns the max abs
     error on the normal ones and the device times of the kernel, its plain
     version and the library call (None where there is none), and the
     kernel's eager time (host launch cost included)."""
     import torch
 
     dev = DEV
+    dtype = dtype or torch.bfloat16
     # entries in {-1, 0, 1}: every partial sum is an integer below 2^24,
     # so both sides sum exactly in f32 whatever their order
     ints = [torch.randint(-1, 2, (R, C), device=dev, generator=gen)
-            .to(torch.bfloat16) for _ in range(n_in)]
+            .to(dtype) for _ in range(n_in)]
     got = kernel_fn(*ints)
     exact = plain_fn(*ints)
     for g, e in zip(got, exact):
@@ -366,8 +407,8 @@ def check_reduction(name, kernel_fn, plain_fn, library_fn, R, C, n_in, gen):
             raise AssertionError(f"{name} {(R, C)}: integer sums differ "
                                  f"from the exact ones by {bad}")
 
-    xs = [torch.randn((R, C), device=dev, generator=gen)
-          .to(torch.bfloat16) for _ in range(n_in)]
+    xs = [torch.randn((R, C), device=dev, generator=gen).to(dtype)
+          for _ in range(n_in)]
     got = kernel_fn(*xs)
     ref = plain_fn(*xs)
     mag = plain_fn(*[t.float().abs() for t in xs])   # Σ|terms|
@@ -380,9 +421,9 @@ def check_reduction(name, kernel_fn, plain_fn, library_fn, R, C, n_in, gen):
                 f"{diff.max().item()} (tolerance 1e-5·Σ|terms| + 1e-6)")
         err = max(err, diff.max().item())
 
-    copies = [[torch.randn((R, C), device=dev, generator=gen)
-               .to(torch.bfloat16) for _ in range(n_in)]
-              for _ in range(n_copies(R * C * 2 * n_in))]
+    copies = [[torch.randn((R, C), device=dev, generator=gen).to(dtype)
+               for _ in range(n_in)]
+              for _ in range(n_copies(R * C * dtype.itemsize * n_in))]
     times = {"ms": device_ms(kernel_fn, copies),
              "plain_ms": device_ms(plain_fn, copies),
              "library_ms": (None if library_fn is None
@@ -399,10 +440,12 @@ def _as4d(x2, R):
     return x2.view(-1, h, w, x2.shape[1]).permute(0, 3, 1, 2)
 
 
-def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels"):
+def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels",
+                  dtype=None):
     """K1 and K2 against their plain versions (and timed) at the BN
     shapes of one train step, `shapes` per image (default ResNet-50@448's)
-    times `batch`, and at the ragged shape."""
+    times `batch`, and at the ragged shape; inputs of `dtype` (by default
+    bf16)."""
     import torch
 
     from learning_embeddings_tpu_torch.ops import bn, bn_triton
@@ -431,9 +474,9 @@ def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels"):
                  1),
                 ("bn_corr", bn_triton.bn_corr, bn._corr_plain, lib_corr, 2)):
             err, times = check_reduction(name, kfn, pfn, lfn, Rb, C, n_in,
-                                         gen)
+                                         gen, dtype)
             row[name] = {"max_abs_err": err, **times,
-                         "bound_ms": bound_ms(Rb, C, n_in)}
+                         "bound_ms": bound_ms(Rb, C, n_in, dtype)}
         rows.append(row)
         log(f"[{tag}] R={Rb:>8} C={C:>4} x{mult:<2} " + " | ".join(
             f"{n} {row[n]['ms'] * 1e3:7.1f}us (eager "
@@ -445,11 +488,13 @@ def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels"):
     return rows
 
 
-def bound_ms(R, C, n_in):
-    """Least time: each bf16 input read once and the two f32 (C,) outputs
-    written once over the HBM rate, or 3 f32 operations per element over
-    the f32 rate, whichever is larger (always the bytes here)."""
-    by_bytes = (n_in * R * C * 2 + 2 * C * 4) / HBM_BYTES_PER_S
+def bound_ms(R, C, n_in, dtype=None):
+    """Least time: each input (by default bf16) read once and the two f32
+    (C,) outputs written once over the HBM rate, or 3 f32 operations per
+    element over the f32 rate, whichever is larger (always the bytes
+    here)."""
+    itemsize = 2 if dtype is None else dtype.itemsize
+    by_bytes = (n_in * R * C * itemsize + 2 * C * 4) / HBM_BYTES_PER_S
     by_ops = 3 * R * C / F32_FLOPS
     return 1e3 * max(by_bytes, by_ops)
 
@@ -2872,6 +2917,29 @@ def zoo_kernels_phase(batch):
                                        library=False)}
 
 
+def mesh_kernels_phase():
+    """Phase 2's additions for phase 15: K1/K2 at the rows each rank gives
+    them there, on integer-valued (exact) and normal inputs. ResNet-50@448
+    at 64 rows ((a): 128 over two ranks), 16 rows ((b)'s tower: its
+    batches' unique images bucketed to 32, 16 a rank) and 8 rows ((d), 8
+    a card); ResNet-18@64 at 4 rows in f32 ((c): 8 over two data shards);
+    the dryrun twin's bf16 ResNet-18 at 64² (4 rows; 2 in its grad_accum
+    micro-steps) and at 32² (its tower, 8 edges bucketed to 8, 4 a
+    rank)."""
+    import torch
+
+    tables = {"r50_448_rows64": (64, RESNET50_448_BN, None),
+              "r50_448_rows16": (16, RESNET50_448_BN, None),
+              "r50_448_rows8": (8, RESNET50_448_BN, None),
+              "r18_64_rows4_f32": (4, RESNET18_64_BN, torch.float32),
+              "r18_64_rows4": (4, RESNET18_64_BN, None),
+              "r18_64_rows2": (2, RESNET18_64_BN, None),
+              "r18_32_rows4": (4, RESNET18_32_BN, None)}
+    return {name: kernels_phase(rows, shapes=shapes, ragged=None,
+                                tag=f"kernels-mesh {name}", dtype=dtype)
+            for name, (rows, shapes, dtype) in tables.items()}
+
+
 def small_zoo_phase(image_size=64, batch=8):
     """One f32 train-mode forward and backward of a small model for each
     zoo option (ZOO_SMALL) on the card (kernels) and on the CPU (plain
@@ -3267,6 +3335,446 @@ def zoo_phase(labelmap, batch, conv7_peak_gib, image_size=448,
 # --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
+# --------------------------------------------------------------------------
+# phase 15: multi-GPU (slice 10)
+# --------------------------------------------------------------------------
+MESH_PROGRAMS = "learning_embeddings_tpu_torch.parallel.programs:"
+#: the classifier criteria, all five run on the (2, 2) mesh
+MESH_CRITERIA = ("multi_level_ce", "last_level_ce", "masked_ce",
+                 "multi_label_sm", "hsoftmax")
+
+
+def _ranks(name, world, kw, backend="gloo", timeout_s=600):
+    """``run_ranks`` of a ``parallel/programs.py`` function on the card, in
+    a scratch directory removed after; a failed rank raises."""
+    import tempfile
+
+    import torch
+
+    from learning_embeddings_tpu_torch.parallel.launch import run_ranks
+
+    torch.cuda.empty_cache()      # the parent's cached blocks, for them
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        return run_ranks(MESH_PROGRAMS + name, world, kw, workdir=work,
+                         device=DEV, backend=backend, timeout_s=timeout_s)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def mesh_slice_phase(labelmap, batch=128, steps=3, timed=3,
+                     backbone="resnet50", image_size=448, n_data=2,
+                     backend="gloo"):
+    """(a) The classifier step at full width (ResNet-50@448, bf16 trunk,
+    multi_level_ce, Adam 1e-5) on an (n_data, 1) mesh (by default two gloo
+    ranks sharing the card, 64 rows each), against the one-process step at
+    the same global batch from the same weights and batches."""
+    from learning_embeddings_tpu_torch.parallel.programs import (
+        classifier_run)
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig)
+
+    cfg = ClassifierConfig(backbone=backbone, criterion="multi_level_ce",
+                           lr=1e-5, image_size=image_size, batch_size=batch,
+                           bn_impl="pallas", device=DEV)
+    kw = dict(labelmap=labelmap, cfg=cfg, synthetic=(steps, 0),
+              timed_steps=timed)
+    n_bn = BACKBONE_BN_FEATURES[backbone][0]
+    t = time.perf_counter()
+    one = classifier_run(**kw)
+    res = _ranks("classifier_steps", n_data, dict(
+        n_data=n_data, n_model=1, device=DEV, **kw), backend=backend)
+    mesh = f"{backend} ({n_data},1)"
+    for rank, r in enumerate(res):
+        worst = max(_rel(a, b) for a, b in zip(r["losses"], one["losses"]))
+        if not worst <= 1e-2:
+            raise AssertionError(f"{mesh} rank {rank}: losses "
+                                 f"{r['losses']} against {one['losses']}")
+        c = r["counts"]
+        want = n_bn * steps
+        got = (c["bn_stats"], c["bn_corr"], c["collective_bn_stats"],
+               c["collective_bn_corr"])
+        if got != (want,) * 4:
+            raise AssertionError(f"{mesh} rank {rank}: K1, K2, BN "
+                                 f"all-reduces {got}, expected {want} each")
+        for k, v in r["running"].items():
+            if not (v == res[0]["running"][k]).all():
+                raise AssertionError(f"running statistic {k} differs "
+                                     f"between the ranks")
+    out = {"one_process": {k: one.get(k) for k in ("losses", "ms_per_step",
+                                                   "peak_gib")},
+           "ranks": [{k: r.get(k) for k in ("losses", "counts",
+                                            "ms_per_step", "timed_step_ms",
+                                            "collective_ms",
+                                            "collective_share", "peak_gib")}
+                     for r in res],
+           "seconds": time.perf_counter() - t}
+    log(f"[mesh] ResNet-50@448 batch {batch} on {mesh} ranks: "
+        f"{[round(x['ms_per_step'], 2) for x in out['ranks']]} ms/step "
+        f"against {one['ms_per_step']:.2f} in one process; losses "
+        f"{res[0]['losses']} vs {one['losses']}; peak "
+        f"{[x['peak_gib'] for x in out['ranks']]} GiB a rank; "
+        f"collectives {[round(x['collective_share'], 3) for x in out['ranks']]}"
+        f" of a step; {n_bn} + {n_bn} K1/K2 and BN all-reduces a rank a "
+        f"step")
+    return out
+
+
+def mesh_joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
+                     steps=3, eval_rows=512, backbone="resnet50",
+                     n_val=VAL_IMAGES):
+    """(b) The BASELINE hyperbolic joint step (ResNet-50@448 tower, 16
+    edges, ratio 5) on the (2, 1) mesh against one process (the first
+    step's loss within 1e-2 relative), with its eval on the mesh (ranking
+    and reconstruction through pairwise_energy_sharded) before and after
+    the steps (before: embeddings within 5e-2 of max|·| and hit@1 within
+    0.01 of one process); the first step again at a small lr_images
+    (``mesh_joint_small_lr``); then the order eval's K3 tiles at M × 5286,
+    D = 10, on (2, 1) and (1, 2) splits, gathered: equal to the
+    one-process kernel bit for bit, one exact_d launch a rank."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.losses.joint_sampling import (
+        build_joint_graph)
+    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+    from learning_embeddings_tpu_torch.parallel.programs import (
+        joint_cnn_run)
+    from learning_embeddings_tpu_torch.train.joint_cnn import JointCNNConfig
+
+    t = time.perf_counter()
+    nl = labelmap.n_classes
+    rng = np.random.RandomState(0)
+    graph, train_edges = build_joint_graph(
+        labelmap, labelmap.leaf_paths()[rng.randint(0, labelmap.levels[-1],
+                                                    n_train)])
+    img_edges = train_edges[train_edges[:, 1] >= nl]
+    bank = rng.randint(0, 256, (64, image_size, image_size, 3),
+                       dtype=np.uint8)
+    n_bn = BACKBONE_BN_FEATURES[backbone][0]
+    cfg = JointCNNConfig(energy="hyp_cone", backbone=backbone,
+                         embedding_dim=EMB_DIM, image_size=image_size,
+                         batch_size=batch, neg_to_pos_ratio=5, alpha=0.05,
+                         pick_per_level=True, lr_labels=1e-2,
+                         lr_images=1e-3, tower_dtype="bfloat16", seed=0,
+                         prefetch=False, device=DEV)
+    edges = img_edges[rng.permutation(len(img_edges))]
+    kw = dict(labelmap=labelmap, graph=graph, edges=img_edges[:10000],
+              bank=bank, cfg=cfg,
+              batches=[tuple(edges[i * batch:(i + 1) * batch].T)
+                       for i in range(steps)],
+              eval_rows=np.arange(eval_rows), eval_batch_size=128,
+              timed_steps=3, eval_at_start=True)
+    one = joint_cnn_run(**kw)
+    res = _ranks("joint_cnn_steps", 2, dict(n_data=2, device=DEV, **kw))
+    want = [s["loss"] for s in one["steps"]]
+    for rank, r in enumerate(res):
+        got = [s["loss"] for s in r["steps"]]
+        # the first step from the same weights; later ones after Adam
+        # steps in which a near-zero gradient's sign is rounding noise
+        if not (_rel(got[0], want[0]) <= 1e-2
+                and all(map(math.isfinite, got))):
+            raise AssertionError(f"joint mesh rank {rank}: losses {got} "
+                                 f"against {want}")
+        c = r["counts"]
+        if (c["bn_stats"], c["bn_corr"]) != (n_bn * steps, n_bn * steps):
+            raise AssertionError(f"joint mesh rank {rank}: K1/K2 "
+                                 f"{c['bn_stats']}/{c['bn_corr']}")
+        if r["eval_counts"]["collective_pairwise_tiles"] != 2:
+            raise AssertionError(f"joint mesh eval: {r['eval_counts']}")
+        # the meshed eval on the start weights: embeddings within bf16
+        # rounding of the one-process tower's (cuDNN picks its algorithms
+        # per batch size), so at most 1% of the rank decisions flip
+        emb, ref = r["start_eval_embeddings"], one["start_eval_embeddings"]
+        err = float(np.abs(emb - ref).max() / np.abs(ref).max())
+        if not (err <= 5e-2
+                and abs(r["start_hit@1"] - one["start_hit@1"]) <= 1e-2):
+            raise AssertionError(
+                f"joint mesh eval at the start: embeddings within {err} "
+                f"of max|·|, hit@1 {r['start_hit@1']} against "
+                f"{one['start_hit@1']}")
+        if not (np.isfinite(r["hit@1"]) and np.isfinite(
+                r["reconstruction_f1"])):
+            raise AssertionError("joint mesh eval: non-finite metrics")
+    out = {"one_process": {"losses": want, "ms_per_step":
+                           one["ms_per_step"], "hit@1": one["hit@1"],
+                           "reconstruction_f1": one["reconstruction_f1"]},
+           "start_eval": {"hit@1": one["start_hit@1"],
+                          "ranks_hit@1": [r["start_hit@1"] for r in res],
+                          "embedding_err": [float(
+                              np.abs(r["start_eval_embeddings"]
+                                     - one["start_eval_embeddings"]).max()
+                              / np.abs(one["start_eval_embeddings"]).max())
+                              for r in res]},
+           "ranks": [{"losses": [s["loss"] for s in r["steps"]],
+                      "counts": r["counts"], "eval_counts": r["eval_counts"],
+                      "ms_per_step": r["ms_per_step"],
+                      "peak_gib": r.get("peak_gib"), "hit@1": r["hit@1"],
+                      "reconstruction_f1": r["reconstruction_f1"]}
+                     for r in res]}
+    log(f"[mesh] (b) hyperbolic joint step on (2,1): "
+        f"{[round(x['ms_per_step'], 2) for x in out['ranks']]} ms/step "
+        f"against {one['ms_per_step']:.2f}; losses "
+        f"{out['ranks'][0]['losses']} vs {want}; eval hit@1 "
+        f"{res[0]['hit@1']:.4f} (one process {one['hit@1']:.4f})")
+    out["small_lr_step"] = {
+        dtype: mesh_joint_small_lr(kw, dtype, min_agree=min_agree)
+        for dtype, min_agree in (("bfloat16", None), ("float32", 0.95))}
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    u = torch.randn((nl, EMB_DIM), device=DEV, generator=gen)
+    v = torch.randn((n_val, EMB_DIM), device=DEV, generator=gen)
+    whole = k3.pairwise_order(u, v).cpu().numpy()
+    out["k3_tiles"] = {}
+    for n_data, n_model in ((2, 1), (1, 2)):
+        tiles = _ranks("pairwise_tiles", 2, dict(
+            n_data=n_data, n_model=n_model, device=DEV, kind="order",
+            u=u.cpu().numpy(), v=v.cpu().numpy()))
+        for rank, r in enumerate(tiles):
+            if not np.array_equal(r["E"], whole):
+                raise AssertionError(
+                    f"K3 tiles on ({n_data},{n_model}) rank {rank}: "
+                    f"max |Δ| {np.abs(r['E'] - whole).max()}")
+            if (r["counts"]["pairwise_order"],
+                    r["counts"]["pairwise_order_exact_d"]) != (1, 1):
+                raise AssertionError(f"K3 tiles: {r['counts']}")
+        out["k3_tiles"][f"{n_data}x{n_model}"] = [r["counts"]
+                                                  for r in tiles]
+        log(f"[mesh] (b) K3 tiles {nl}×{n_val}, D = {EMB_DIM}, on "
+            f"({n_data},{n_model}): gathered equal to the whole bit for "
+            f"bit, 1 exact_d launch a rank")
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def mesh_joint_small_lr(kw, tower_dtype, lr_images=1e-5, min_agree=None):
+    """(b)'s first step again at `lr_images` (as phase 2's small joint
+    steps) with the tower in `tower_dtype` (float32: TF32 off), then the
+    eval, on the (2, 1) mesh and in one process: the tower and the label
+    table after the step equal on both ranks bit for bit, the embeddings
+    after the step within 5e-2 of max|·| and hit@1 within 0.01 of one
+    process (the start eval's limits). Adam's first step moves each tower
+    entry by about ±lr_images, so a tower gradient reduced wrongly shows
+    as moves of the other sign: their share of agreement with one
+    process's, over the entries one process moved by more than
+    lr_images / 2, is reported, and held to `min_agree` where given. In
+    bf16 the rounding of the two runs flips many small gradients' signs;
+    in f32 a wrong reduction stands out (on the CPU at ResNet-18@32, 4
+    edges: f32 1.0000, and 0.6781 with the tower gradient not summed back
+    to each image's rank; bf16 0.8918 and 0.6605)."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.parallel.programs import (
+        joint_cnn_run)
+
+    full_f32 = tower_dtype == "float32"
+    small = dict(kw, cfg=dataclasses.replace(
+        kw["cfg"], lr_images=lr_images, tower_dtype=tower_dtype),
+        batches=kw["batches"][:1], timed_steps=0, eval_at_start=False)
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    if full_f32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        start = joint_cnn_run(**dict(small, batches=(), eval_rows=None))
+        one = joint_cnn_run(**small)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    res = _ranks("joint_cnn_steps", 2, dict(n_data=2, device=DEV,
+                                            full_f32=full_f32, **small))
+    for part in ("images", "labels"):
+        for k, v in res[0][part].items():
+            if not np.array_equal(v, res[1][part][k]):
+                raise AssertionError(f"joint mesh, {tower_dtype} tower: "
+                                     f"{part} {k} differs between the ranks")
+    moved = agree = 0
+    for k, p0 in start["images"].items():
+        if "running_" in k:
+            continue
+        ref = one["images"][k] - p0
+        got = res[0]["images"][k] - p0
+        m = np.abs(ref) > lr_images / 2
+        moved += int(m.sum())
+        agree += int((np.sign(got[m]) == np.sign(ref[m])).sum())
+    share = agree / max(moved, 1)
+    emb, ref = res[0]["eval_embeddings"], one["eval_embeddings"]
+    err = float(np.abs(emb - ref).max() / np.abs(ref).max())
+    out = {"tower_dtype": tower_dtype, "lr_images": lr_images,
+           "loss": res[0]["steps"][0]["loss"],
+           "one_process_loss": one["steps"][0]["loss"],
+           "entries_moved": moved, "sign_agreement": share,
+           "min_agree": min_agree, "embedding_err": err,
+           "hit@1": res[0]["hit@1"], "one_process_hit@1": one["hit@1"],
+           "reconstruction_f1": res[0]["reconstruction_f1"],
+           "one_process_reconstruction_f1": one["reconstruction_f1"]}
+    log(f"[mesh] (b) one step at lr_images {lr_images}, {tower_dtype} "
+        f"tower: moves of one process's sign on {share:.4f} of {moved} "
+        f"entries (limit {min_agree}); embeddings within {err:.3g} of "
+        f"max|·|; hit@1 {out['hit@1']:.4f} against "
+        f"{out['one_process_hit@1']:.4f}")
+    if not ((min_agree is None or share >= min_agree) and err <= 5e-2
+            and abs(out["hit@1"] - out["one_process_hit@1"]) <= 1e-2):
+        raise AssertionError(f"joint mesh after one step at lr_images "
+                             f"{lr_images}: {out}")
+    return out
+
+
+def mesh_tp_phase(labelmaps, image_size=64, batch=8):
+    """(c) A (2, 2) mesh of four ranks, f32 ResNet-18@64, every criterion
+    on each taxonomy (Butterfly200's 344: the head column-parallel; an odd
+    count: row-parallel; masked_ce's gradients summed), against one
+    process: the logits within 1e-5 of max|logit|, the losses within 1e-5
+    relative."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.parallel.programs import (
+        classifier_run, synthetic_batches)
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig)
+
+    t = time.perf_counter()
+    cases = []
+    for lm in labelmaps:
+        for crit in MESH_CRITERIA:
+            cfg = ClassifierConfig(backbone="resnet18", criterion=crit,
+                                   lr=1e-3, image_size=image_size,
+                                   batch_size=batch, dtype=torch.float32,
+                                   device=DEV)
+            cases.append(dict(labelmap=lm, cfg=cfg, synthetic=(1, 0),
+                              eval_batch=synthetic_batches(
+                                  lm, 1, batch, image_size, 1)[0]))
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False   # full f32 for this check
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        one = [classifier_run(**kw) for kw in cases]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    res = _ranks("classifier_cases", 4, dict(n_data=2, n_model=2,
+                                             cases=cases, device=DEV,
+                                             full_f32=True))
+    worst = worst_loss = 0.0
+    forms = {}
+    for i, kw in enumerate(cases):
+        ref = one[i]
+        scale = float(np.abs(ref["eval_scores"]).max())
+        for rank, r in enumerate(res):
+            got = r[i]
+            err = float(np.abs(got["eval_scores"]
+                               - ref["eval_scores"]).max())
+            loss_err = max(_rel(got["eval_loss"], ref["eval_loss"]),
+                           _rel(got["losses"][0], ref["losses"][0]))
+            worst = max(worst, err / scale)
+            worst_loss = max(worst_loss, loss_err)
+            if err > 1e-5 * scale or loss_err > 1e-5:
+                raise AssertionError(
+                    f"(2,2) {kw['cfg'].criterion} on "
+                    f"{kw['labelmap'].n_classes} classes rank {rank}: "
+                    f"logits |Δ| {err:.3e} (limit 1e-5 of max|logit| "
+                    f"{scale:.3e}), losses {loss_err:.3e} relative "
+                    f"(limit 1e-5)")
+        c = res[0][i]["counts"]
+        forms[f"{kw['cfg'].criterion}/{kw['labelmap'].n_classes}"] = (
+            "column" if c.get("collective_gather_cols") else
+            "row" if c.get("collective_reduce_from_group") else "replicated")
+    log(f"[mesh] (c) (2,2) ResNet-18@{image_size} f32, {len(cases)} cases: "
+        f"logits within {worst:.2e} of max|logit|, losses within "
+        f"{worst_loss:.2e} relative (limits 1e-5); head forms {forms}")
+    return {"worst_logit_rel": worst, "worst_loss_rel": worst_loss,
+            "head_forms": forms,
+            "counts_rank0": [r["counts"] for r in res[0]],
+            "seconds": time.perf_counter() - t}
+
+
+def mesh_nccl_phase(labelmap, batch=8, backbone="resnet50",
+                    image_size=448):
+    """(d) An NCCL group over every card of the machine: (a)'s step at a
+    small batch, then an all_reduce over the group of known values; on a
+    machine of several cards also (a) itself over them, one rank a
+    card."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig)
+
+    t = time.perf_counter()
+    n = torch.cuda.device_count()
+    cfg = ClassifierConfig(backbone=backbone, criterion="multi_level_ce",
+                           lr=1e-5, image_size=image_size,
+                           batch_size=batch * n,
+                           bn_impl="pallas", device=DEV)
+    res = _ranks("nccl_check", n, dict(labelmap=labelmap, cfg=cfg,
+                                       synthetic=(2, 0)),
+                 backend="nccl")
+    for r in res:
+        if r["backend"] != "nccl" or r["world"] != n:
+            raise AssertionError(f"NCCL group: {r['backend']}, {r['world']}")
+        if not np.array_equal(r["reduced"], np.full(4, n * (n + 1) / 2)):
+            raise AssertionError(f"NCCL all_reduce gave {r['reduced']}")
+        if not all(map(math.isfinite, r["losses"])):
+            raise AssertionError(f"NCCL step losses {r['losses']}")
+    log(f"[mesh] (d) NCCL group of {n} rank(s): started, reduced, losses "
+        f"{res[0]['losses']}")
+    out = {"world": n, "losses": res[0]["losses"],
+           "counts": res[0]["counts"]}
+    if n >= 2:
+        out["cards"] = mesh_slice_phase(labelmap, batch=128 // n * n,
+                                        n_data=n, backend="nccl")
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def mesh_dryrun_phase(n=4):
+    """(e) The twin of the JAX package's dryrun_multichip on the card."""
+    from learning_embeddings_tpu_torch.entry import dryrun_multichip
+
+    import torch
+
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    summary = dryrun_multichip(n, device=DEV)
+    if summary.get("ok") is not True:
+        raise AssertionError(f"dryrun_multichip: {summary}")
+    return {"summary": summary, "seconds": time.perf_counter() - t}
+
+
+def mesh_phase(labelmap):
+    """Phase 15: (a)-(e); returns the records and the launches of each
+    mesh path, rank by rank."""
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+
+    t = time.perf_counter()
+    out = {"slice": mesh_slice_phase(labelmap)}
+    out["joint"] = mesh_joint_phase(labelmap)
+    out["tp"] = mesh_tp_phase([labelmap, toy_labelmap(3, 3)])
+    out["nccl"] = mesh_nccl_phase(labelmap)
+    out["dryrun"] = mesh_dryrun_phase()
+    out["seconds"] = time.perf_counter() - t
+    log(f"[mesh] phase took {out['seconds']:.1f} s")
+    paths = {}
+    for rank, r in enumerate(out["slice"]["ranks"]):
+        paths[f"mesh_classifier_2x1_rank{rank}"] = r["counts"]
+    for rank, r in enumerate(out["joint"]["ranks"]):
+        paths[f"mesh_joint_hyp_2x1_rank{rank}"] = r["counts"]
+        paths[f"mesh_joint_eval_2x1_rank{rank}"] = r["eval_counts"]
+    for split, counts in out["joint"]["k3_tiles"].items():
+        for rank, c in enumerate(counts):
+            paths[f"mesh_k3_tiles_{split}_rank{rank}"] = c
+    paths["mesh_nccl_rank0"] = out["nccl"]["counts"]
+    return out, paths
+
+
 def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                 eval_prof, hyp_result, label_results, cli_paths, r18_rows,
                 zoo_rows):
@@ -3413,6 +3921,7 @@ def main(argv=None):
     t = time.perf_counter()
     bn_rows = kernels_phase(args.batch)
     zoo_rows = zoo_kernels_phase(args.batch)
+    mesh_rows = mesh_kernels_phase()
     k3_result = k3_phase(build, labelmap.n_classes)
     bn_train_phase()
     small_step_phase(toy_labelmap(3, 3))
@@ -3483,6 +3992,9 @@ def main(argv=None):
         zoo, zoo_paths = zoo_phase(labelmap, args.batch,
                                    result["max_memory_allocated_gib"])
         cli_paths.update(zoo_paths)
+        torch.cuda.empty_cache()
+        mesh, mesh_paths = mesh_phase(labelmap)
+        cli_paths.update(mesh_paths)
     finally:
         shutil.rmtree(EXPERIMENTS, ignore_errors=True)
     kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof,
@@ -3497,7 +4009,8 @@ def main(argv=None):
                "joint_runner": runner, "oe_h_cli": oe_h_cli,
                "classifier_cli": classifier_cli, "fc7": fc7,
                "inference": inference_result, "other_datasets": other,
-               "zoo": zoo, "zoo_kernel_shapes": zoo_rows,
+               "zoo": zoo, "zoo_kernel_shapes": zoo_rows, "mesh": mesh,
+               "mesh_kernel_shapes": mesh_rows,
                "cli_launches": cli_paths,
                "kernel_shapes": bn_rows, "pairwise_order": k3_result,
                "kernels": kernels,

@@ -18,6 +18,10 @@ pixels through the C++ JPEG loader of ``data/native_loader.py`` (resize +
 flip, no crop: ``pad=0``). The JAX CLI takes that loader by itself for
 .jpg files and falls back to Python quietly; the port takes it only when
 asked and raises where it fails.
+
+Under ``torchrun`` both paths run data-parallel over every rank (the
+runners' ``mesh="auto"``): the edge batches, and the ``--use_CNN`` tower
+batch, shard over 'data'.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from ..train.experiment import load_checkpoint_file
 from ..train.joint import JointTrainerConfig
 from ..train.runner import run_joint_embedding
 from .common import (add_common_flags, add_loader_flag, load_ethec_data,
-                     manifest_from_args)
+                     manifest_from_args, process_group_from_env)
 
 LOSS_MAP = {
     "order_emb_loss": "order",
@@ -184,6 +188,11 @@ def load_features(features_dir: str, split: str, dataset) -> np.ndarray:
 
 def joint_main(args, default_energy: str):
     args = build_parser(default_energy).parse_args(args)
+    with process_group_from_env(args.device):
+        return _joint_main(args, default_energy)
+
+
+def _joint_main(args, default_energy: str):
     if args.model is None:   # effective backbone lands in the manifest
         args.model = "resnet18" if args.use_CNN else "alexnet"
     labelmap, datasets, _ = load_ethec_data(args.data_dir, args.debug)
@@ -253,6 +262,7 @@ def joint_main(args, default_energy: str):
         manifest_args=manifest_from_args(args),
         init_embeddings=init_table,
         init_threshold=init_threshold,
+        mesh="auto",
     )
     print({k: v for k, v in result.items()
            if isinstance(v, (int, float, str))})
@@ -352,6 +362,7 @@ def _joint_cnn_main(args, labelmap, datasets, graph, train_edges,
         init_embeddings=init_table,
         init_threshold=init_threshold,
         init_tower=load_tower_warm_start(args),
+        mesh="auto",
     )
     print({k: v for k, v in result.items()
            if isinstance(v, (int, float, str))})

@@ -9,7 +9,8 @@ among them, plus ``--device``.
 The images load from the python pickles under ``--data_root``; where they
 are absent the CLI trains on ``synthetic_array_dataset``, as the JAX CLI
 does. ``--bn_stats_rows N`` takes the ghost-batch statistics route;
-``--n_model > 1`` raises (not ported: ROADMAP.md queue A item 21).
+under ``torchrun`` ``--n_model N`` shards the head over N ranks of each
+data shard.
 
     python -m learning_embeddings_tpu_torch.cli.cifar --dataset cifar10 \\
         --experiment_dir <dir> --experiment_name c --n_epochs 1 \\

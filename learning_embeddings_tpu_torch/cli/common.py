@@ -2,11 +2,12 @@
 (ETHEC dataset loading, debug subsetting, the common argparse flags; flag
 names, types and defaults are the JAX package's; the classifier's
 inverse-frequency class weights), plus the port's own ``--device``
-flag."""
+flag, and ``process_group_from_env`` for runs under ``torchrun``."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from typing import Dict
 
@@ -20,6 +21,28 @@ from ..hierarchy import labelmap_from_records
 #: where the ETHEC split jsons live: $ETHEC_SPLITS_DIR, as in the JAX
 #: package; unset, --data_dir must be given
 DEFAULT_DATA_DIR = os.environ.get("ETHEC_SPLITS_DIR")
+
+
+@contextlib.contextmanager
+def process_group_from_env(device):
+    """Under ``torchrun`` (WORLD_SIZE > 1 in the environment): the default
+    process group for the run (``parallel.mesh.init_from_env``), which the
+    runners' ``mesh="auto"`` then shards over, destroyed at the end; a
+    plain run starts none."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_from_env
+
+    started = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
+            not dist.is_initialized():
+        init_from_env(device=device)
+        started = True
+    try:
+        yield
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def add_device_flag(parser: argparse.ArgumentParser) -> None:

@@ -8,13 +8,18 @@ flax's); ``--bn_stats_rows`` and ``--bn_stats_dtype bfloat16`` take the
 ``GhostBatchNorm`` route (K1 on the statistics rows, its bf16-rounding
 variant for bf16). ``--loader native`` decodes JPEG files in the C++
 loader of ``data/native_loader.py`` (the JAX CLI takes it by itself for
-.jpg files). Flags whose feature is not ported raise: ``--n_model > 1``
-and ``--spatial_partition`` (ROADMAP.md queue A item 21).
+.jpg files). Under ``torchrun`` the run shards over every rank: the
+batch over 'data' and, with ``--n_model N``, the head over N ranks of each
+data shard (``train/runner.py``'s ``mesh="auto"``).
+``--spatial_partition`` is not ported and raises (ROADMAP.md queue A item
+28).
 
     python -m learning_embeddings_tpu_torch.cli.ethec_experiments \\
         --data_dir <splits> --image_dir <images> --experiment_dir <dir> \\
         --experiment_name e --n_epochs 2 --model resnet50 \\
         --loss multi_level --set_mode train [--device cpu]
+    torchrun --nproc_per_node 4 -m \\
+        learning_embeddings_tpu_torch.cli.ethec_experiments ... --n_model 2
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import argparse
 
 from .common import (add_common_flags, add_loader_flag,
                      inverse_class_weights, load_ethec_data,
-                     manifest_from_args)
+                     manifest_from_args, process_group_from_env)
 
 LOSS_MAP = {
     "multi_level": "multi_level_ce",
@@ -70,8 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "into <exp>/stats/trace and log the top op "
                              "classes by device time.")
     parser.add_argument("--n_model", type=int, default=1,
-                        help="Mesh 'model' axis width (not ported: > 1 "
-                             "raises).")
+                        help="Mesh 'model' axis width: ranks of each data "
+                             "shard that hold the head's tensor-parallel "
+                             "blocks (under torchrun).")
     parser.add_argument("--spatial_partition", action="store_true",
                         help="Shard the image H axis (not ported: raises).")
     parser.add_argument("--grad_accum", type=int, default=1,
@@ -94,13 +100,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(args=None):
     from ..train.classifier import ClassifierConfig
-    from ..train.runner import run_classifier
 
     args = build_parser().parse_args(args)
     if args.spatial_partition:
         raise NotImplementedError(
             "--spatial_partition is not ported yet (ROADMAP.md queue A "
-            "item 21)")
+            "item 28, slice 11: spatial partitioning)")
     labelmap, datasets, _ = load_ethec_data(args.data_dir, args.debug)
 
     class_weights = None
@@ -129,6 +134,13 @@ def main(args=None):
         device=args.device,
     )
     evaluator = args.evaluator if args.loss == "multi_label" else "MLEVAL"
+    with process_group_from_env(args.device):
+        return _run(args, labelmap, datasets, cfg, evaluator)
+
+
+def _run(args, labelmap, datasets, cfg, evaluator):
+    from ..train.runner import run_classifier
+
     return run_classifier(
         labelmap, datasets, args.image_dir, cfg,
         experiment_dir=args.experiment_dir,

@@ -10,8 +10,8 @@ where they are absent the CLI trains on ``synthetic_array_dataset``, as
 the JAX CLI does. On the card every train step runs the BatchNorm
 reductions of ``ops/bn_triton.py`` (20 + 20 on the default ResNet-18).
 ``--bn_stats_rows N`` takes the ghost-batch statistics route
-(``GhostBatchNorm``). ``--n_model > 1`` raises (not ported: ROADMAP.md
-queue A item 21).
+(``GhostBatchNorm``). Under ``torchrun`` the run shards over every rank,
+``--n_model N`` ranks of each data shard holding the head's blocks.
 
     python -m learning_embeddings_tpu_torch.cli.fashion_mnist \\
         --experiment_dir <dir> --experiment_name f --n_epochs 1 \\
@@ -31,7 +31,8 @@ from ..data.workloads import (
     stratified_index_split,
     synthetic_array_dataset,
 )
-from .common import add_device_flag, inverse_class_weights, manifest_from_args
+from .common import (add_device_flag, inverse_class_weights,
+                     manifest_from_args, process_group_from_env)
 from .ethec_experiments import LOSS_MAP
 
 __all__ = ["LOSS_MAP", "build_parser", "add_workload_flags", "run_workload",
@@ -75,8 +76,9 @@ def add_workload_flags(parser: argparse.ArgumentParser) -> None:
                         help=">0: ghost-batch BN statistics over the first "
                              "N rows of each batch.")
     parser.add_argument("--n_model", type=int, default=1,
-                        help="Mesh 'model' axis width (not ported: > 1 "
-                             "raises).")
+                        help="Mesh 'model' axis width: ranks of each data "
+                             "shard that hold the head's tensor-parallel "
+                             "blocks (under torchrun).")
     parser.add_argument("--lr_step", type=int, nargs="*",
                         default=[],
                         help="Epochs where lr *= lr_decay "
@@ -142,23 +144,24 @@ def run_workload(args, labelmap, loader, name: str, size: int,
         device=args.device,
     )
     evaluator = args.evaluator if args.loss == "multi_label" else "MLEVAL"
-    return run_classifier(
-        labelmap, datasets, "", cfg,
-        experiment_dir=args.experiment_dir,
-        experiment_name=args.experiment_name,
-        n_epochs=args.n_epochs,
-        evaluator=evaluator,
-        eval_interval=args.eval_interval,
-        n_workers=args.n_workers,
-        use_grayscale=use_grayscale,
-        resume=args.resume,
-        manifest_args=manifest_from_args(args),
-        set_mode=args.set_mode,
-        augment="rrc",
-        use_weighted_resampler=False,
-        n_model=args.n_model,
-        input_dtype="float32" if args.f32_input else "uint8",
-    )
+    with process_group_from_env(args.device):
+        return run_classifier(
+            labelmap, datasets, "", cfg,
+            experiment_dir=args.experiment_dir,
+            experiment_name=args.experiment_name,
+            n_epochs=args.n_epochs,
+            evaluator=evaluator,
+            eval_interval=args.eval_interval,
+            n_workers=args.n_workers,
+            use_grayscale=use_grayscale,
+            resume=args.resume,
+            manifest_args=manifest_from_args(args),
+            set_mode=args.set_mode,
+            augment="rrc",
+            use_weighted_resampler=False,
+            n_model=args.n_model,
+            input_dtype="float32" if args.f32_input else "uint8",
+        )
 
 
 def main(args=None):

@@ -18,7 +18,8 @@ import numpy as np
 from ..hierarchy import label_graph_from_paths, split_edges
 from ..train.embedding import EmbeddingTrainerConfig
 from ..train.runner import run_label_embedding
-from .common import add_common_flags, load_ethec_data, manifest_from_args
+from .common import (add_common_flags, load_ethec_data, manifest_from_args,
+                     process_group_from_env)
 
 LOSS_MAP = {
     "order_emb_loss": "order",
@@ -124,16 +125,17 @@ def main(args=None):
     args = build_parser().parse_args(args)
     labelmap, splits = label_splits(args)
     cfg = label_config(args, LOSS_MAP[args.loss], args.optimizer_method)
-    result = run_label_embedding(
-        labelmap, splits, cfg,
-        experiment_dir=args.experiment_dir,
-        experiment_name=args.experiment_name,
-        n_epochs=args.n_epochs,
-        eval_interval=args.eval_interval,
-        check_reconstr_every=args.check_reconstr_every,
-        resume=args.resume,
-        manifest_args=manifest_from_args(args),
-    )
+    with process_group_from_env(args.device):
+        result = run_label_embedding(
+            labelmap, splits, cfg,
+            experiment_dir=args.experiment_dir,
+            experiment_name=args.experiment_name,
+            n_epochs=args.n_epochs,
+            eval_interval=args.eval_interval,
+            check_reconstr_every=args.check_reconstr_every,
+            resume=args.resume,
+            manifest_args=manifest_from_args(args),
+        )
     if args.load_cosine_emb:
         print("note: cosine warm start is applied before training in the "
               "hyperbolic CLI; ignored for euclidean losses")

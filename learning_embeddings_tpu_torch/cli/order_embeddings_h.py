@@ -16,7 +16,7 @@ import argparse
 import numpy as np
 
 from ..train.runner import run_label_embedding
-from .common import manifest_from_args
+from .common import manifest_from_args, process_group_from_env
 from .order_embeddings import add_label_flags, label_config, label_splits
 
 
@@ -45,17 +45,18 @@ def main(args=None):
     if args.load_cosine_emb:
         warm_start = np.load(args.load_cosine_emb)
 
-    result = run_label_embedding(
-        labelmap, splits, cfg,
-        experiment_dir=args.experiment_dir,
-        experiment_name=args.experiment_name,
-        n_epochs=args.n_epochs,
-        eval_interval=args.eval_interval,
-        check_reconstr_every=args.check_reconstr_every,
-        resume=args.resume,
-        manifest_args=manifest_from_args(args),
-        init_embeddings=warm_start,
-    )
+    with process_group_from_env(args.device):
+        result = run_label_embedding(
+            labelmap, splits, cfg,
+            experiment_dir=args.experiment_dir,
+            experiment_name=args.experiment_name,
+            n_epochs=args.n_epochs,
+            eval_interval=args.eval_interval,
+            check_reconstr_every=args.check_reconstr_every,
+            resume=args.resume,
+            manifest_args=manifest_from_args(args),
+            init_embeddings=warm_start,
+        )
     print({k: v for k, v in result.items()
            if isinstance(v, (int, float, str))})
     return result

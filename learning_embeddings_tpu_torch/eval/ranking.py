@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from ..geometry import pairwise_energy
+from ..geometry import pairwise_energy, pairwise_energy_sharded
 from .metrics import prf1_from_counts
 
 __all__ = ["joint_classification_metrics"]
@@ -38,15 +38,19 @@ def joint_classification_metrics(
     labelmap,
     energy: str = "hyp_cone",
     ks: Sequence[int] = (1, 3, 5),
+    mesh=None,
     **energy_kw,
 ) -> Dict[str, object]:
     """label_emb: (n_labels, D); img_emb: (n_images, D), tensors or arrays
     (the images are moved to the labels' device);
     img_paths_global: (n_images, L) gt ancestor (global label id) per
-    level."""
+    level. With a mesh the (labels × images) matrix is tiled over it
+    (``pairwise_energy_sharded``)."""
     lab = torch.as_tensor(label_emb)
     img = torch.as_tensor(img_emb, device=lab.device)
-    E = pairwise_energy(energy, lab, img, **energy_kw).detach().cpu().numpy()
+    E = (pairwise_energy(energy, lab, img, **energy_kw) if mesh is None
+         else pairwise_energy_sharded(energy, lab, img, mesh=mesh,
+                                      **energy_kw)).detach().cpu().numpy()
     n_labels, n_images = E.shape
     L = labelmap.n_levels
     img_paths_global = np.asarray(img_paths_global)

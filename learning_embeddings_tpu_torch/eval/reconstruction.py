@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..geometry import pairwise_energy
+from ..geometry import pairwise_energy, pairwise_energy_sharded
 from .threshold import (ThresholdMetrics, best_threshold_metrics,
                         threshold_metrics)
 
@@ -27,15 +27,19 @@ def reconstruction_metrics(
     closure: np.ndarray,
     energy: str = "hyp_cone",
     threshold: Optional[float] = None,
+    mesh=None,
     **energy_kw,
 ) -> ThresholdMetrics:
     """F1/acc/P/R of reconstructing `closure` from pairwise energies.
 
     embeddings: (N, D) label embeddings. closure: (N, N) bool transitive
     closure. With `threshold=None` the best-F1 threshold is swept;
-    otherwise the metrics are taken at the fixed threshold."""
+    otherwise the metrics are taken at the fixed threshold. With a mesh
+    the (N, N) matrix is tiled over it (``pairwise_energy_sharded``)."""
     emb = torch.as_tensor(embeddings)
-    E = pairwise_energy(energy, emb, emb, **energy_kw)
+    E = (pairwise_energy(energy, emb, emb, **energy_kw) if mesh is None
+         else pairwise_energy_sharded(energy, emb, emb, mesh=mesh,
+                                      **energy_kw))
     closure = torch.as_tensor(np.asarray(closure, dtype=bool),
                               device=E.device)
     offdiag = ~torch.eye(closure.shape[0], dtype=torch.bool,

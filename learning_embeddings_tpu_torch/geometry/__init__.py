@@ -8,6 +8,7 @@ from .energies import (
 )
 from .pairwise import (
     pairwise_energy,
+    pairwise_energy_sharded,
     pairwise_euc_cone_energy,
     pairwise_hyp_cone_energy,
     pairwise_order_energy,
@@ -42,6 +43,7 @@ __all__ = [
     "mobius_add",
     "order_energy",
     "pairwise_energy",
+    "pairwise_energy_sharded",
     "pairwise_euc_cone_energy",
     "pairwise_hyp_cone_energy",
     "pairwise_order_energy",

@@ -8,9 +8,11 @@
   Gram matrix plus elementwise math, as the JAX package leaves that product
   to XLA.
 
-All functions take U (M, D), V (N, D) and return (M, N) f32. There is no
-mesh here and so no ``pairwise_energy_sharded`` (ROADMAP.md queue A
-item 21).
+All functions take U (M, D), V (N, D) and return (M, N) f32.
+``pairwise_energy_sharded`` (JAX lines 171-229) tiles the matrix over a
+mesh: U's rows shard over 'model', V's over 'data', each rank computes its
+(M/p, N/q) tile with the same single-device function (K3 on the card for
+the order energy) and the tiles are gathered to every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.pairwise_order import pairwise_order
+from ..parallel.mesh import all_gather_rows
 from .energies import EUC_CONE_K, HYP_CONE_K, _CLAMP, _TINY
 
 __all__ = [
@@ -25,6 +28,7 @@ __all__ = [
     "pairwise_euc_cone_energy",
     "pairwise_hyp_cone_energy",
     "pairwise_energy",
+    "pairwise_energy_sharded",
 ]
 
 
@@ -82,3 +86,35 @@ _PAIRWISE = {
 
 def pairwise_energy(kind: str, u, v, **kw) -> torch.Tensor:
     return _PAIRWISE[kind](u, v, **kw)
+
+
+def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    pad = (-x.shape[0]) % multiple
+    if not pad:
+        return x
+    return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+
+
+def pairwise_energy_sharded(kind: str, u, v, *, mesh=None,
+                            **kw) -> torch.Tensor:
+    """(M, N) all-pairs energies tiled over `mesh`: U's rows shard over
+    'model', V's rows over 'data', so each rank runs the single-device
+    function on its (M/p, N/q) tile; the tiles are gathered to every rank
+    (all_reduce of zeroed buffers: exact). Ragged M and N pad with a
+    repeated last row, and the padding is sliced off. mesh=None, a 1 × 1
+    mesh and empty inputs take ``pairwise_energy`` itself. Every entry is
+    computed as on one device, so the order kernel's tiles equal its
+    whole matrix bit for bit."""
+    m, n = int(u.shape[0]), int(v.shape[0])
+    if mesh is None or m == 0 or n == 0 or mesh.size == 1:
+        return pairwise_energy(kind, u, v, **kw)
+    p, q = mesh.n_model, mesh.n_data
+    up, vp = _pad_rows(u, p), _pad_rows(v, q)
+    mb, nb = up.shape[0] // p, vp.shape[0] // q
+    i, j = mesh.model_index, mesh.data_index
+    tile = pairwise_energy(kind, up[i * mb:(i + 1) * mb],
+                           vp[j * nb:(j + 1) * nb], **kw)       # (mb, nb)
+    rows = all_gather_rows(tile.T.contiguous(), mesh.data_group,
+                           "pairwise_tiles").T                  # (mb, N')
+    return all_gather_rows(rows.contiguous(), mesh.model_group,
+                           "pairwise_tiles")[:m, :n]

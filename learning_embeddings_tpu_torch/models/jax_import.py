@@ -23,11 +23,15 @@ from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
+import re
+
 import numpy as np
 import torch
+from torch import nn
 
 __all__ = ["state_dict_from_jax", "label_table_from_jax",
-           "label_table_from_jax_checkpoint", "feat_net_from_jax"]
+           "label_table_from_jax_checkpoint", "feat_net_from_jax",
+           "jax_param_path"]
 
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
@@ -126,3 +130,36 @@ def label_table_from_jax_checkpoint(
     variables = params["labels"] if "labels" in params else params
     thr = float(tree.get("optimal_threshold", float("nan")))
     return label_table_from_jax(variables), (None if np.isnan(thr) else thr)
+
+
+def jax_param_path(model: nn.Module, name: str
+                   ) -> Tuple[str, Tuple[int, ...], Tuple[int, ...]]:
+    """(JAX path, JAX shape, torch dim of each JAX axis) of the parameter
+    `name` of a ``HierarchicalCNN`` or ``FeatCNN``: the reverse of
+    ``state_dict_from_jax``'s names and layouts. A linear weight (out, in)
+    is the kernel (in, out), a conv weight OIHW the kernel HWIO, a
+    BatchNorm weight the scale; the path joins the flax tree's keys with
+    '/' (as ``param_shardings`` matches them), e.g. ``fc/kernel`` or
+    ``trunk/layer1_0/conv1/kernel``."""
+    owner, _, leaf = name.rpartition(".")
+    module = model.get_submodule(owner)
+    shape = tuple(model.get_parameter(name).shape)
+    path = owner.replace(".", "/")
+    path = re.sub(r"layer(\d+)/(\d+)", r"layer\1_\2", path)
+    path = path.replace("downsample/0", "downsample_conv").replace(
+        "downsample/1", "downsample_bn")
+    if path.startswith("trunk/") and not hasattr(
+            model.get_submodule("trunk"), "layer1"):
+        # AlexNet / VGG11BN: flax's automatic names
+        path = re.sub(r"^trunk/(conv|dense|bn)(\d+)",
+                      lambda m: "trunk/" + {"conv": "Conv", "dense": "Dense",
+                                            "bn": "BatchNorm"}[m[1]]
+                      + "_" + m[2], path)
+    if isinstance(module, nn.Linear) and leaf == "weight":
+        return path + "/kernel", shape[::-1], (1, 0)
+    if isinstance(module, nn.Conv2d) and leaf == "weight":
+        return (path + "/kernel", (shape[2], shape[3], shape[1], shape[0]),
+                (2, 3, 1, 0))
+    if leaf == "weight":        # a BatchNorm's scale
+        return path + "/scale", shape, tuple(range(len(shape)))
+    return f"{path}/{leaf}", shape, tuple(range(len(shape)))

@@ -44,6 +44,24 @@ each activation as a row-major (R = N·H·W, C) matrix, which is a free view
 of a channels_last tensor. Any other layout costs an explicit copy, counted
 in ``CHANNELS_LAST_COPIES``.
 
+On a mesh (``group``: the 'data' process group of
+``parallel/mesh.py``; None is one device) the statistics are those of the
+global batch, as GSPMD's all-reduce makes them in the JAX package: each
+rank runs K1 / K2 on its own rows, the f32 (2, C) sums are all-reduced
+over the group (one ``all_reduce`` per BN layer and pass, counted as
+"bn_stats" / "bn_corr" in ``parallel.mesh.COLLECTIVES``), and the
+epilogue runs on the global sums, so the running statistics are equal
+on every rank. The gradient of the scale and bias is this rank's share
+(the trainer's gradient all-reduce adds the shares); dx takes the global
+sums. Ghost statistics cover the first rows of the *global* batch: a
+rank whose rows lie past the prefix adds zeros and launches no K1. bf16
+statistics round the all-reduced means. The flax route takes the
+library's synchronised statistics (``torch.batch_norm_stats``,
+``torch.batch_norm_gather_stats_with_counts``, the kernels
+``nn.SyncBatchNorm`` runs) on the card, and their plain equivalent on the
+CPU, where those operators do not exist. Every shard has the same number
+of rows.
+
 Rematerialisation: a block recomputed in the backward pass runs its
 BatchNorm forward again; a module whose ``recomputing`` flag is set (the
 trunks set it for the recompute, ``models/resnet.py``) leaves its running
@@ -57,9 +75,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import (all_gather_rows, all_reduce_, group_rank,
+                             group_size)
+
 __all__ = ["batch_norm_train", "ghost_batch_norm_train", "BatchNormBase",
            "FusedBatchNorm", "GhostBatchNorm", "FlaxBatchNorm", "make_norm",
-           "BN_IMPLS", "BN_STATS_DTYPES", "CHANNELS_LAST_COPIES"]
+           "set_batch_norm_group", "BN_IMPLS", "BN_STATS_DTYPES",
+           "CHANNELS_LAST_COPIES"]
 
 #: the train-mode BatchNorm routes a trunk can take (``bn_impl``)
 BN_IMPLS = ("pallas", "flax")
@@ -104,6 +126,14 @@ def _corr(dy2, x2):
     raise ValueError(f"no BatchNorm backward path for {x2.device}")
 
 
+def _summed(group, tag, *sums):
+    """Per-channel f32 sums added over `group` (one all_reduce of the
+    stacked (k, C) buffer); unchanged for one device."""
+    if group is None:
+        return sums
+    return all_reduce_(torch.stack(sums), group, tag).unbind(0)
+
+
 def _channel_minor(t):
     """`t` with its channels (dim 1) innermost in memory; copies (and
     counts the copy) when they are not."""
@@ -127,11 +157,11 @@ def _per_channel(v, like):
 class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, group):
         x = _channel_minor(x)
         x2 = _rows(x)
-        R = x2.shape[0]
-        s, q = _stats(x2)
+        R = x2.shape[0] * group_size(group)
+        s, q = _summed(group, "bn_stats", *_stats(x2))
         mean = s / R
         var = torch.clamp_min(q / R - mean * mean, 0.0)
         inv = torch.rsqrt(var + eps)
@@ -140,6 +170,7 @@ class _BatchNormTrain(torch.autograd.Function):
         y = torch.addcmul(_per_channel(b.to(x.dtype), x), x,
                           _per_channel(a.to(x.dtype), x))
         ctx.save_for_backward(x, scale, mean, inv)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -148,8 +179,9 @@ class _BatchNormTrain(torch.autograd.Function):
         # the statistics are consumed without gradient (running averages)
         x, scale, mean, inv = ctx.saved_tensors
         dy = _channel_minor(dy)
-        R = x.numel() // x.shape[1]
-        sdy, sdyx = _corr(_rows(dy), _rows(x))
+        R = x.numel() // x.shape[1] * group_size(ctx.group)
+        sdy_own, sdyx_own = _corr(_rows(dy), _rows(x))
+        sdy, sdyx = _summed(ctx.group, "bn_corr", sdy_own, sdyx_own)
         # Σ dy·x̂ = (Σ dy·x − mean·Σ dy) · inv
         sdyxh = (sdyx - mean * sdy) * inv
         g = scale.float() * inv
@@ -160,31 +192,43 @@ class _BatchNormTrain(torch.autograd.Function):
               .sub_(_per_channel(mean_dy, x))
               .sub_(xhat.mul_(_per_channel(mean_dyxh, x)))
               .mul_(_per_channel(g, x)))
-        return (dx.to(x.dtype), sdyxh.to(scale.dtype), sdy.to(scale.dtype),
-                None)
+        # the scale's and bias's gradients from this rank's rows
+        dscale = (sdyx_own - mean * sdy_own) * inv
+        return (dx.to(x.dtype), dscale.to(scale.dtype),
+                sdy_own.to(scale.dtype), None, None)
 
 
-def batch_norm_train(x, scale, bias, eps: float = 1e-5):
-    """Train-mode batch norm of x (N, C, ...) over all axes but dim 1.
+def batch_norm_train(x, scale, bias, eps: float = 1e-5, group=None):
+    """Train-mode batch norm of x (N, C, ...) over all axes but dim 1, and
+    over the ranks of `group` (None: this device's rows only).
 
     Returns (y, mean, var): biased variance, f32 statistics, y in x.dtype
     and in x's channel-minor layout. mean and var carry no gradient."""
-    return _BatchNormTrain.apply(x, scale, bias, eps)
+    return _BatchNormTrain.apply(x, scale, bias, eps, group)
 
 
 class _GhostBatchNormTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, stats_rows, round_bf16):
+    def forward(ctx, x, scale, bias, eps, stats_rows, round_bf16, group):
         x = _channel_minor(x)
         n_img = x.shape[0]
-        rows = min(stats_rows, n_img) if stats_rows > 0 else n_img
+        # the prefix of the global batch; this rank holds images
+        # [k·n_img, (k + 1)·n_img) of it
+        total = n_img * group_size(group)
+        prefix = min(stats_rows, total) if stats_rows > 0 else total
+        rows = min(max(prefix - group_rank(group) * n_img, 0), n_img)
         x2 = _rows(x)
-        xs2 = x2[:rows * (x2.shape[0] // n_img)]    # the rows' prefix view
+        per_img = x2.shape[0] // n_img
+        xs2 = x2[:rows * per_img]                   # the rows' prefix view
         if round_bf16:
             xs2 = xs2.to(torch.bfloat16)
-        n = xs2.shape[0]
-        s, q = _stats(xs2, True) if round_bf16 else _stats(xs2)
+        n = prefix * per_img
+        if rows:
+            s, q = _stats(xs2, True) if round_bf16 else _stats(xs2)
+        else:   # no row of this rank is in the prefix: no launch
+            s = q = torch.zeros(x2.shape[1], device=x.device)
+        s, q = _summed(group, "bn_stats", s, q)
         mean, msq = s / n, q / n
         if round_bf16:   # jnp.mean of a bf16 array: f32 sum, bf16 result
             mean = mean.to(torch.bfloat16).float()
@@ -198,6 +242,7 @@ class _GhostBatchNormTrain(torch.autograd.Function):
                           _per_channel(a.to(x.dtype), x))
         ctx.save_for_backward(x, scale, mean, inv, d)
         ctx.rows, ctx.n, ctx.round_bf16 = rows, n, round_bf16
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -205,7 +250,8 @@ class _GhostBatchNormTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, mean, inv, d = ctx.saved_tensors
         dy = _channel_minor(dy)
-        sdy, sdyx = _corr(_rows(dy), _rows(x))    # over all R rows
+        sdy_own, sdyx_own = _corr(_rows(dy), _rows(x))    # over all R rows
+        sdy, sdyx = _summed(ctx.group, "bn_corr", sdy_own, sdyx_own)
         g = scale.float() * inv
         # through b = bias − mean·a: da = Σdy·x − mean·Σdy
         da = sdyx - mean * sdy
@@ -219,31 +265,112 @@ class _GhostBatchNormTrain(torch.autograd.Function):
             xs = xs.to(torch.bfloat16)
         dx[:ctx.rows].add_(_per_channel(dmean / ctx.n, x)).add_(
             torch.mul(xs.float(), _per_channel(2 * dvar / ctx.n, x)))
-        return (dx.to(x.dtype), (da * inv).to(scale.dtype),
-                sdy.to(scale.dtype), None, None, None)
+        # the scale's and bias's gradients from this rank's rows
+        dscale = (sdyx_own - mean * sdy_own) * inv
+        return (dx.to(x.dtype), dscale.to(scale.dtype),
+                sdy_own.to(scale.dtype), None, None, None, None)
 
 
 def ghost_batch_norm_train(x, scale, bias, eps: float = 1e-5,
                            stats_rows: int = 8,
-                           stats_dtype: torch.dtype = torch.float32):
+                           stats_dtype: torch.dtype = torch.float32,
+                           group=None):
     """``batch_norm_train`` with the statistics of the first `stats_rows`
-    batch rows (all for ≤ 0) in `stats_dtype` (float32 or bfloat16): the
-    JAX package's ``GhostBatchNorm`` in train mode. The normalisation
-    covers every row. Returns (y, mean, var)."""
+    batch rows (all for ≤ 0) of the global batch (over the ranks of
+    `group`) in `stats_dtype` (float32 or bfloat16): the JAX package's
+    ``GhostBatchNorm`` in train mode. The normalisation covers every row.
+    Returns (y, mean, var)."""
     if stats_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"stats_dtype must be float32 or bfloat16, got "
                          f"{stats_dtype}")
     return _GhostBatchNormTrain.apply(x, scale, bias, eps, int(stats_rows),
-                                      stats_dtype == torch.bfloat16)
+                                      stats_dtype == torch.bfloat16, group)
 
 
-def _library_batch_norm_train(x, scale, bias, eps: float):
+def _own_stats(x, eps: float):
+    """(mean, invstd) of x's rows in f32, biased variance: the library's
+    ``torch.batch_norm_stats`` on the card, its plain equivalent on the
+    CPU (where the operator does not exist)."""
+    if x.is_cuda:
+        return torch.batch_norm_stats(x, eps)
+    dims = [0] + list(range(2, x.ndim))
+    xf = x.float()
+    return xf.mean(dims), torch.rsqrt(xf.var(dims, correction=0) + eps)
+
+
+class _SyncBatchNormTrain(torch.autograd.Function):
+    """The library's synchronised train-mode BatchNorm over `group` (what
+    ``nn.SyncBatchNorm`` runs), with the plain equivalent on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, group):
+        x = _channel_minor(x)
+        C = x.shape[1]
+        mean, invstd = _own_stats(x, eps)
+        own = torch.cat([mean, invstd,
+                         mean.new_full((1,), x.numel() // C)])[None]
+        every = all_gather_rows(own, group, "bn_stats")      # (p, 2C + 1)
+        means, invstds, counts = every[:, :C], every[:, C:2 * C], every[:, -1]
+        N = float(counts.sum())
+        if x.is_cuda:
+            # momentum 1 into zeroed buffers: the unbiased global variance
+            run_mean = torch.zeros(C, device=x.device)
+            run_var = torch.zeros(C, device=x.device)
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                x, means, invstds, run_mean, run_var, 1.0, eps, counts)
+            var = run_var * ((N - 1) / N)
+            y = torch.batch_norm_elemt(x, scale, bias, mean, invstd, eps)
+        else:
+            w = (counts / N)[:, None]
+            mean = (w * means).sum(0)
+            var = (w * (invstds.pow(-2) - eps + (means - mean) ** 2)).sum(0)
+            invstd = torch.rsqrt(var + eps)
+            y = ((x.float() - _per_channel(mean, x))
+                 * _per_channel(invstd * scale.float(), x)
+                 + _per_channel(bias.float(), x)).to(x.dtype)
+        ctx.save_for_backward(x, scale, mean, invstd, counts)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, mean, invstd, counts = ctx.saved_tensors
+        dy = _channel_minor(dy)
+        if x.is_cuda:
+            sdy_own, sdyxmu_own, dscale, dbias = \
+                torch.batch_norm_backward_reduce(dy, x, mean, invstd, scale,
+                                                 True, True, True)
+        else:
+            dims = [0] + list(range(2, x.ndim))
+            dyf = dy.float()
+            xmu = x.float() - _per_channel(mean, x)
+            sdy_own, sdyxmu_own = dyf.sum(dims), (dyf * xmu).sum(dims)
+            dscale, dbias = sdyxmu_own * invstd, sdy_own
+        sdy, sdyxmu = _summed(ctx.group, "bn_corr", sdy_own, sdyxmu_own)
+        if x.is_cuda:
+            dx = torch.batch_norm_backward_elemt(
+                dy, x, mean, invstd, scale, sdy, sdyxmu,
+                counts.to(torch.int32))
+        else:
+            N = counts.sum()
+            dx = ((dyf - _per_channel(sdy / N, x)
+                   - xmu * _per_channel(invstd * invstd * sdyxmu / N, x))
+                  * _per_channel(invstd * scale.float(), x)).to(x.dtype)
+        return (dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None,
+                None)
+
+
+def _library_batch_norm_train(x, scale, bias, eps: float, group=None):
     """The library's train-mode BatchNorm of x (N, C, ...): (y, mean, var)
     with the biased variance. ``F.batch_norm`` writes the batch mean and
     the *unbiased* variance Σ(x − mean)²/(R − 1) into running buffers;
     buffers that start at 0 with momentum 1 hold exactly those, and
     (R − 1)/R turns the variance into the biased one the JAX package's
-    running statistics take."""
+    running statistics take. Over a `group` of ranks: the library's
+    synchronised statistics (``_SyncBatchNormTrain``)."""
+    if group is not None:
+        return _SyncBatchNormTrain.apply(x, scale, bias, eps, group)
     C = x.shape[1]
     mean = torch.zeros(C, device=x.device)
     var = torch.zeros(C, device=x.device)
@@ -275,6 +402,7 @@ class BatchNormBase(nn.Module):
         #: set while a rematerialised block recomputes its forward: the
         #: running statistics were updated by the first forward already
         self.recomputing = False
+        self.group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -306,7 +434,8 @@ class FusedBatchNorm(BatchNormBase):
     mode runs ``batch_norm_train`` (the kernels on the card)."""
 
     def _train(self, x):
-        return batch_norm_train(x, self.weight, self.bias, self.eps)
+        return batch_norm_train(x, self.weight, self.bias, self.eps,
+                                self.group)
 
 
 class GhostBatchNorm(BatchNormBase):
@@ -323,7 +452,8 @@ class GhostBatchNorm(BatchNormBase):
 
     def _train(self, x):
         return ghost_batch_norm_train(x, self.weight, self.bias, self.eps,
-                                      self.stats_rows, self.stats_dtype)
+                                      self.stats_rows, self.stats_dtype,
+                                      self.group)
 
 
 class FlaxBatchNorm(BatchNormBase):
@@ -332,7 +462,16 @@ class FlaxBatchNorm(BatchNormBase):
     statistics move with the biased variance and flax's momentum."""
 
     def _train(self, x):
-        return _library_batch_norm_train(x, self.weight, self.bias, self.eps)
+        return _library_batch_norm_train(x, self.weight, self.bias, self.eps,
+                                         self.group)
+
+
+def set_batch_norm_group(module: nn.Module, group) -> None:
+    """Every train-mode BatchNorm of `module` reduces its statistics over
+    `group` (a mesh's 'data' group; None: this device alone)."""
+    for m in module.modules():
+        if isinstance(m, BatchNormBase):
+            m.group = group
 
 
 def make_norm(bn_impl: str = "pallas", bn_stats_rows: int = 0,

@@ -28,6 +28,20 @@ the BatchNorm routes of ``ops/bn.py``: ``bn_stats_rows`` /
 ``bn_stats_dtype`` (``GhostBatchNorm``) before ``bn_impl`` ('pallas', the
 fused reductions, the port's default; 'flax', the library's BatchNorm).
 
+On a mesh (``mesh=``, ``parallel/mesh.py``), as the JAX package's GSPMD
+step: the batch shards over 'data' (``put_batch`` keeps this rank's rows
+of the global batch) and the parameters are replicated, except those
+``param_shardings`` shards over 'model' by ``cfg.tp_patterns`` (the
+head's ``fc/kernel``: column-parallel when the fan-out divides, else
+row-parallel), each rank keeping the Adam state of its block. The
+BatchNorm statistics are those of the global batch (``ops/bn.py``). The
+gradients are all-reduced over 'data' once per optimizer update, after
+the `grad_accum`-th micro-batch: averaged for the criteria that are batch
+means, summed for ``masked_ce``, whose loss is the batch sum. The loss
+``train_step`` returns and the loss and scores of ``eval_step`` are the
+global batch's. A checkpoint holds the sharded head gathered whole, so it
+loads on any mesh and on one device.
+
 State: PyTorch updates in place, which is what the JAX step's buffer
 donation amounts to. ``train_step`` returns the state it was given, with
 its model and optimizer updated and its step count advanced.
@@ -53,12 +67,15 @@ from ..losses.classification import (
 )
 from ..models.heads import HierarchicalCNN
 from ..models.resnet import init_params_, s2d_stem_kernel
-from ..ops.bn import BN_IMPLS, make_norm
+from ..ops.bn import BN_IMPLS, make_norm, set_batch_norm_group
 from ..ops.image import device_scale
+from ..parallel.mesh import (Mesh, all_gather_rows, all_reduce_,
+                             all_reduce_grads_, param_shardings,
+                             shard_linear_layers_, shard_rows)
 
 __all__ = ["ClassifierConfig", "ClassifierTrainer", "TrainState",
-           "make_criterion", "resolve_device", "CRITERIA",
-           "CRITERION_TO_HEAD", "BN_IMPLS"]
+           "make_criterion", "resolve_device", "mesh_or_device", "CRITERIA",
+           "CRITERION_TO_HEAD", "BN_IMPLS", "SUMMED_CRITERIA"]
 
 CRITERIA = ("multi_level_ce", "last_level_ce", "masked_ce",
             "multi_label_sm", "hsoftmax")
@@ -71,6 +88,10 @@ CRITERION_TO_HEAD = {
     "hsoftmax": "hsoftmax",
 }
 
+#: criteria whose loss is a batch sum (their gradients add over shards)
+SUMMED_CRITERIA = ("masked_ce",)
+
+
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; raises if it names CUDA and no card is
     present. Nothing moves to the CPU unless the caller asked for it."""
@@ -80,6 +101,21 @@ def resolve_device(device) -> torch.device:
             "device='cuda' was asked for but no CUDA card is available; "
             "pass device='cpu' to run on the CPU")
     return device
+
+
+def mesh_or_device(mesh, device) -> torch.device:
+    """The device a trainer runs on: the mesh's (whose device type must
+    be the config's), or `device` (``resolve_device``) without a mesh.
+    Raises for anything but a ``parallel.mesh.Mesh`` or None."""
+    if mesh is None:
+        return resolve_device(device)
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh) "
+                        f"or None, got {type(mesh).__name__}")
+    if mesh.device.type != torch.device(device).type:
+        raise ValueError(f"the mesh runs on {mesh.device}, the config asks "
+                         f"for {device!r}")
+    return mesh.device
 
 
 @dataclasses.dataclass
@@ -108,6 +144,7 @@ class ClassifierConfig:
     #                          ops.bn_triton); 'flax' = the library's BN
     bn_stats_dtype: str = "float32"  # 'bfloat16' = bf16 BN statistics
     grad_accum: int = 1      # micro-batches per optimizer update
+    tp_patterns: Sequence[str] = ("fc/kernel",)   # sharded over 'model'
     device: str = "cuda"
 
 
@@ -172,15 +209,17 @@ def _check_options(cfg: ClassifierConfig) -> None:
 
 
 class ClassifierTrainer:
-    """Builds the model, optimizer and steps on `cfg.device`; `grayscale`
-    gives the trunk one input channel."""
+    """Builds the model, optimizer and steps on `cfg.device`, or on this
+    rank's place of `mesh`; `grayscale` gives the trunk one input
+    channel."""
 
     def __init__(self, labelmap: LabelMap, cfg: ClassifierConfig,
-                 grayscale: bool = False):
+                 mesh: Optional[Mesh] = None, grayscale: bool = False):
         _check_options(cfg)
         self.labelmap = labelmap
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.mesh = mesh
+        self.device = mesh_or_device(mesh, cfg.device)
         self.criterion = make_criterion(labelmap, cfg)
         self.n_channels = 1 if grayscale else 3
         model = HierarchicalCNN(
@@ -191,6 +230,14 @@ class ClassifierTrainer:
             bn_impl=cfg.bn_impl, bn_stats_dtype=cfg.bn_stats_dtype)
         init_params_(model, torch.Generator().manual_seed(cfg.seed))
         model.to(device=self.device, memory_format=torch.channels_last)
+        #: the full-shape name of each sharded weight → its layer
+        self._sharded = {}
+        if mesh is not None:
+            shardings = param_shardings(model, mesh, cfg.tp_patterns)
+            for owner in shard_linear_layers_(model, mesh, shardings):
+                self._sharded[owner + ".weight"] = model.get_submodule(owner)
+            set_batch_norm_group(model, mesh.data_group)
+        self._sum_grads = cfg.criterion in SUMMED_CRITERIA
         if cfg.freeze_trunk:
             model.trunk.requires_grad_(False)
 
@@ -200,7 +247,11 @@ class ClassifierTrainer:
         # accumulation an epoch has steps_per_epoch // grad_accum updates
         spe = max(int(cfg.steps_per_epoch) // cfg.grad_accum, 1)
         self._boundaries = sorted({int(b) * spe for b in cfg.lr_steps})
-        params = [p for p in model.parameters() if p.requires_grad]
+        named = [(k, p) for k, p in model.named_parameters()
+                 if p.requires_grad]
+        #: the optimizer's parameters and their names, in its order
+        self._opt_names = [k for k, _ in named]
+        params = self._params = [p for _, p in named]
         if cfg.optimizer == "adam":   # optax.adam defaults
             opt = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
                                    eps=1e-8)
@@ -236,17 +287,32 @@ class ClassifierTrainer:
         (loss / k if k > 1 else loss).backward()
         state.micro += 1
         if state.micro == k:
+            if self.mesh is not None:
+                all_reduce_grads_(self._params, self.mesh.data_group,
+                                  average=not self._sum_grads)
             state.optimizer.step()
             state.scheduler.step()
             state.micro = 0
         state.step += 1
-        return state, loss.detach()
+        return state, self._global_loss(loss.detach())
+
+    def _global_loss(self, loss):
+        if self.mesh is None:
+            return loss
+        return all_reduce_(loss.clone(), self.mesh.data_group, "loss",
+                           average=not self._sum_grads)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, images, level_labels, multihot):
+        """(loss, scores) of the global batch."""
         state.model.eval()
         raw = self._forward(state.model, images)
-        return self.criterion(raw, level_labels, multihot)
+        loss, scores = self.criterion(raw, level_labels, multihot)
+        if self.mesh is None:
+            return loss, scores
+        return (self._global_loss(loss),
+                all_gather_rows(scores.contiguous(), self.mesh.data_group,
+                                "eval_scores"))
 
     # ------------------------------------------------------------------
     def load_backbone_state_dict(self, path: str) -> None:
@@ -268,44 +334,85 @@ class ClassifierTrainer:
             sd["conv1.weight"] = trunk.conv1.weight.detach()
         trunk.load_state_dict(sd, strict=True)
 
+    def load_weights(self, state_dict) -> None:
+        """Parameters and running statistics from a one-device state dict
+        (whole tensors or arrays); on a mesh each rank keeps its blocks."""
+        self.state.model.load_state_dict(
+            {k: self._block(k, torch.as_tensor(v))
+             for k, v in state_dict.items()}, strict=True)
+
+    def whole_state_dict(self) -> dict:
+        """The model's state dict with every sharded weight gathered whole:
+        a collective on a mesh, so every rank calls it."""
+        return {k: self._whole(k, v.detach())
+                for k, v in self.state.model.state_dict().items()}
+
     # ------------------------------------------------------------------
     def checkpoint_payload(self) -> dict:
         """Trainer half of the checkpoint contract: params, batch_stats
         and opt_state (optimizer, lr-schedule position and, between the
         micro-batches of one update, the gradients accumulated so far)."""
         st = self.state
-        acc = ({k: p.grad.detach().clone()
+        acc = ({k: self._whole(k, p.grad.detach().clone())
                 for k, p in st.model.named_parameters()
                 if p.grad is not None} if st.micro else {})
-        return {"params": {k: v.detach()
+        return {"params": {k: self._whole(k, v.detach())
                            for k, v in st.model.named_parameters()},
                 "batch_stats": dict(st.model.named_buffers()),
-                "opt_state": {"optimizer": st.optimizer.state_dict(),
+                "opt_state": {"optimizer": self._optimizer_state(
+                                  self._whole),
                               "scheduler": st.scheduler.state_dict(),
                               "step": st.step, "micro": st.micro,
                               "acc_grads": acc}}
 
+    def _whole(self, name, t):
+        """A tensor shaped like parameter `name` on this rank, whole (the
+        blocks of a sharded weight gathered over 'model')."""
+        layer = self._sharded.get(name)
+        return t if layer is None else layer.gather(t)
+
+    def _block(self, name, t):
+        """This rank's block of a whole tensor shaped like parameter
+        `name`."""
+        layer = self._sharded.get(name)
+        return t if layer is None else layer.shard(t).clone()
+
+    def _optimizer_state(self, fn, sd=None):
+        """The optimizer's state dict with `fn(name, t)` applied to every
+        per-parameter tensor (moments; not Adam's 0-d step count)."""
+        sd = sd if sd is not None else self.state.optimizer.state_dict()
+        if not self._sharded:
+            return sd
+        return {**sd, "state": {
+            i: {k: (fn(self._opt_names[i], v)
+                    if torch.is_tensor(v) and v.ndim else v)
+                for k, v in st.items()}
+            for i, st in sd["state"].items()}}
+
     def restore_payload(self, payload: dict) -> None:
         st = self.state
-        st.model.load_state_dict({**payload["params"],
-                                  **payload["batch_stats"]}, strict=True)
+        params = {k: self._block(k, v) for k, v in payload["params"].items()}
+        st.model.load_state_dict({**params, **payload["batch_stats"]},
+                                 strict=True)
         opt_state = payload["opt_state"]
-        st.optimizer.load_state_dict(opt_state["optimizer"])
+        st.optimizer.load_state_dict(self._optimizer_state(
+            self._block, opt_state["optimizer"]))
         st.scheduler.load_state_dict(opt_state["scheduler"])
         st.step = int(opt_state["step"])
         st.micro = int(opt_state.get("micro", 0))
         acc = opt_state.get("acc_grads", {})
         for k, p in st.model.named_parameters():
-            p.grad = (acc[k].to(p.device) if st.micro and k in acc
-                      else None)
+            p.grad = (self._block(k, acc[k]).to(p.device)
+                      if st.micro and k in acc else None)
 
     # ------------------------------------------------------------------
     def put_batch(self, images, level_labels, multihot):
         """Host (numpy) or device batch → tensors on the trainer's device:
         images keep their dtype (uint8 is the transfer format), labels
-        become int64, the multi-hot f32."""
+        become int64, the multi-hot f32. On a mesh, this rank's rows of the
+        global batch."""
         def put(a, dtype=None):
-            t = torch.as_tensor(a)
+            t = torch.as_tensor(shard_rows(a, self.mesh))
             return t.to(self.device, dtype=dtype or t.dtype,
                         non_blocking=True)
         return (put(images), put(level_labels, torch.int64),

@@ -1,5 +1,5 @@
 """Label-hierarchy embedding trainer: the port of
-``learning_embeddings_tpu/train/embedding.py`` (one device, no mesh).
+``learning_embeddings_tpu/train/embedding.py``.
 
 * the edge splits, closure and negative adjacency come from
   ``hierarchy.split_edges``;
@@ -19,6 +19,13 @@
   test, over negatives drawn once per split; ``reconstruction`` checks
   the label closure from the all-pairs energies (for the order energy,
   the kernel of ``ops/pairwise_order.py`` on the card).
+
+On a mesh (``mesh=``) every rank draws the global batch's negatives from
+the same generator and keeps its block of the edges (the 'data' shard:
+its positives and their negatives); the table and the optimizer are
+replicated and the gradients summed over 'data' (the loss is a sum), so a
+step equals the one-device step. The reconstruction tiles its energies
+over the mesh.
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ from ..losses.margin import (degree_neg_weights, level_weights_for_nodes,
 from ..models.embedder import LabelEmbedder
 from ..optim import (RiemannianAdam, RiemannianSGD, project_annulus_,
                      scale_by_conformal_factor_)
-from .classifier import resolve_device
+from ..parallel.mesh import (all_reduce_grads_, check_batch_divides,
+                             global_step_outputs, shard_rows)
+from .classifier import mesh_or_device
 
 __all__ = ["EmbeddingTrainerConfig", "EmbeddingTrainer", "ENERGY_TO_MODE",
            "ENERGY_DEFAULT_K"]
@@ -80,9 +89,9 @@ class EmbeddingTrainer:
     def __init__(self, labelmap: LabelMap, splits: EdgeSplits,
                  config: EmbeddingTrainerConfig, mesh=None):
         cfg = config
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes are not ported yet (ROADMAP.md queue A item 21)")
+        self.device = mesh_or_device(mesh, cfg.device)
+        check_batch_divides(cfg.batch_size, mesh)
+        self.mesh = mesh
         if cfg.optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}; "
                              f"expected one of {OPTIMIZERS}")
@@ -92,7 +101,6 @@ class EmbeddingTrainer:
         self.labelmap = labelmap
         self.splits = splits
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
         self.K = cfg.K if cfg.K is not None else ENERGY_DEFAULT_K[cfg.energy]
         self.n_nodes = n = splits.negatives.shape[0]
         self.model = LabelEmbedder(
@@ -167,19 +175,25 @@ class EmbeddingTrainer:
 
     def train_step(self, pos_from, pos_to, neg_from, neg_to):
         """One optimizer step from the given positives and negatives
-        (arrays or tensors of node ids). Returns (loss, e_pos, e_neg) as
-        device tensors."""
+        (arrays or tensors of node ids; on a mesh the global batch, of
+        which this rank takes its block). Returns (loss, e_pos, e_neg) of
+        the global batch as device tensors."""
         loss, (e_pos, e_neg) = self._loss(
-            *(self._ids(a) for a in (pos_from, pos_to, neg_from, neg_to)))
+            *(self._ids(shard_rows(a, self.mesh))
+              for a in (pos_from, pos_to, neg_from, neg_to)))
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            all_reduce_grads_(self.model.parameters(), self.mesh.data_group,
+                              average=False)
         if self._conformal:
             scale_by_conformal_factor_(self.model.parameters())
         self.optimizer.step()
         self.scheduler.step()
         if self._project:
             project_annulus_(self.model.parameters(), self.K)
-        return loss.detach(), e_pos.detach(), e_neg.detach()
+        return global_step_outputs(self.mesh, loss.detach(), e_pos.detach(),
+                                   e_neg.detach())
 
     def train_batch(self, pos_from, pos_to):
         """One step with negatives drawn on the device."""
@@ -296,4 +310,5 @@ class EmbeddingTrainer:
         nl = self.labelmap.n_classes
         return reconstruction_metrics(
             self.all_embeddings()[:nl], self.splits.closure[:nl, :nl],
-            energy=self.cfg.energy, threshold=threshold, **self._energy_kw)
+            energy=self.cfg.energy, threshold=threshold, mesh=self.mesh,
+            **self._energy_kw)

@@ -13,6 +13,10 @@ of ``learning_embeddings_tpu/train/experiment.py`` (lines 43-227):
   checkpoints are not read here (ROADMAP.md).
 * ``MetricsLogger`` — tensorboard scalars where ``torch.utils.tensorboard``
   imports, and always a jsonl mirror with the same records.
+
+Under a process group (a mesh run) only rank 0 writes: the manifest, the
+checkpoints and the metrics; a checkpoint save ends in a barrier, so every
+rank that reads it back after the save finds the whole file.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import time
 from typing import Any, Dict, Optional
 
 import torch
+
+from ..parallel.mesh import barrier, is_writer
 
 __all__ = [
     "ExperimentDir",
@@ -66,7 +72,14 @@ class ExperimentDir:
 
 
 def write_manifest(exp: ExperimentDir, args: Dict[str, Any]) -> None:
-    """'key: value' lines, sorted by key, with the git hash and branch."""
+    """'key: value' lines, sorted by key, with the git hash and branch
+    (rank 0 writes; the others wait for the file)."""
+    if is_writer():
+        _write_manifest_file(exp, args)
+    barrier()
+
+
+def _write_manifest_file(exp: ExperimentDir, args: Dict[str, Any]) -> None:
     info = dict(args)
     info.update(git_info())
     with open(exp.manifest_path, "w") as f:
@@ -105,11 +118,14 @@ class Checkpointer:
         """Writes `payload` (tensors, optimizer state dicts, numbers) to
         weights/<name>, through a temporary file and a rename, so a reader
         never sees half a checkpoint. The write is synchronous, so `wait`
-        changes nothing; it is kept for the JAX package's callers."""
-        path = self._path(name)
-        tmp = os.path.join(os.path.dirname(path), f".{name}.tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+        changes nothing; it is kept for the JAX package's callers. Under a
+        process group rank 0 writes and every rank waits for it."""
+        if is_writer():
+            path = self._path(name)
+            tmp = os.path.join(os.path.dirname(path), f".{name}.tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        barrier()
 
     def wait_until_finished(self) -> None:
         """Nothing is in flight: every save returns when its file is
@@ -144,10 +160,14 @@ class Checkpointer:
 
 class MetricsLogger:
     """Tensorboard scalars + a jsonl mirror (metrics stay greppable
-    without tensorboard)."""
+    without tensorboard); on rank 0 only."""
 
     def __init__(self, exp: ExperimentDir):
         self.jsonl_path = os.path.join(exp.logs, "metrics.jsonl")
+        self.writes = is_writer()
+        self._tb = None
+        if not self.writes:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -156,6 +176,8 @@ class MetricsLogger:
             self._tb = None
 
     def scalar(self, tag: str, value: float, step: int) -> None:
+        if not self.writes:
+            return
         if self._tb is not None:
             self._tb.add_scalar(tag, float(value), step)
         with open(self.jsonl_path, "a") as f:

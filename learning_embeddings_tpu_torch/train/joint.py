@@ -1,6 +1,6 @@
 """The fc7 joint image + label trainer and the pieces the joint trainers
-share: the port of ``learning_embeddings_tpu/train/joint.py`` (one
-device, no mesh). The ``--use_CNN`` trainer is ``train/joint_cnn.py``.
+share: the port of ``learning_embeddings_tpu/train/joint.py``. The
+``--use_CNN`` trainer is ``train/joint_cnn.py``.
 
 Node ids: labels are global labelmap indices, train images
 ``n_labels + row``. ``JointEmbeddingTrainer`` embeds an image as
@@ -52,7 +52,10 @@ from ..losses.margin import variant_loss
 from ..models.embedder import FeatNet, LabelEmbedder
 from ..optim import (RiemannianAdam, RiemannianSGD, project_annulus_,
                      scale_by_conformal_factor_)
-from .classifier import resolve_device
+from ..parallel.mesh import (all_gather_rows, all_reduce_grads_,
+                             check_batch_divides, global_step_outputs,
+                             shard_rows)
+from .classifier import mesh_or_device
 
 __all__ = ["JOINT_MODE", "DEFAULT_K", "DEFAULT_CURRICULUM",
            "epoch_edge_order", "curriculum_levels_for_epoch",
@@ -217,6 +220,12 @@ class JointOptimization:
         for opt in self._optimizers:
             opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            # the losses are sums: the shards' gradients add up
+            all_reduce_grads_([p for opt in self._optimizers
+                               for g in opt.param_groups
+                               for p in g["params"]],
+                              self.mesh.data_group, average=False)
         if self._conformal:
             scale_by_conformal_factor_(self.embedder.parameters())
         for opt in self._optimizers:
@@ -253,15 +262,15 @@ class JointEmbeddingTrainer(JointOptimization):
                  features: np.ndarray, cfg: JointTrainerConfig, mesh=None):
         """train_edges: (E, 2) node-id pairs (label→label and label→image)
         of the train skeleton. features: (n_images, feature_dim) fc7 rows
-        of the train images, an array or a tensor."""
-        if mesh not in (None, "auto"):
-            raise NotImplementedError(
-                "meshes are not ported yet (ROADMAP.md queue A item 21)")
+        of the train images, an array or a tensor. mesh: a
+        ``parallel.mesh.Mesh`` or None."""
         check_joint_options(cfg)
+        self.device = mesh_or_device(mesh, cfg.device)
+        check_batch_divides(cfg.batch_size, mesh)
+        self.mesh = mesh
         self.labelmap = labelmap
         self.graph = graph
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
         self.K = cfg.K if cfg.K is not None else DEFAULT_K[cfg.energy]
         mode = JOINT_MODE[cfg.energy]
         self.train_edges = np.asarray(train_edges, np.int32)
@@ -346,10 +355,13 @@ class JointEmbeddingTrainer(JointOptimization):
 
     def train_step(self, pos_from, pos_to, neg_from, neg_to):
         """One optimizer step from the given positives and negatives
-        (arrays or tensors of node ids). Returns (loss, e_pos, e_neg) as
-        device tensors: the caller decides when to wait for them."""
+        (arrays or tensors of node ids; on a mesh the global batch, of
+        which this rank takes its block). Returns (loss, e_pos, e_neg) of
+        the global batch as device tensors: the caller decides when to
+        wait for them."""
         cfg = self.cfg
-        ids = [self._ids(a) for a in (pos_from, pos_to, neg_from, neg_to)]
+        ids = [self._ids(shard_rows(a, self.mesh))
+               for a in (pos_from, pos_to, neg_from, neg_to)]
         # one lookup over all four id sets, split after
         emb = self.node_embeddings(torch.cat(ids)).split(
             [len(i) for i in ids])
@@ -357,7 +369,8 @@ class JointEmbeddingTrainer(JointOptimization):
             cfg.loss_variant, *emb, energy=cfg.energy, alpha=cfg.alpha,
             neg_to_pos_ratio=cfg.neg_to_pos_ratio, **self._energy_kw)
         self._update(loss)
-        return loss.detach(), e_pos.detach(), e_neg.detach()
+        return global_step_outputs(self.mesh, loss.detach(), e_pos.detach(),
+                                   e_neg.detach())
 
     def train_batch(self, pos_from, pos_to, hidden: Tuple[int, ...] = ()):
         """One step with negatives drawn on the device by the sampler of
@@ -400,11 +413,19 @@ class JointEmbeddingTrainer(JointOptimization):
     @torch.no_grad()
     def image_embeddings(self, features=None) -> torch.Tensor:
         """FeatNet embeddings of fc7 rows (the train features by
-        default)."""
+        default). On a mesh the rows shard over 'data' (a ragged count is
+        padded with the last row, and the padding dropped) and the
+        embeddings are gathered."""
         feats = (self.features if features is None else
                  torch.as_tensor(features, dtype=torch.float32)
                  .to(self.device))
-        return self.featnet(feats)
+        if self.mesh is None or self.mesh.n_data == 1:
+            return self.featnet(feats)
+        n, q = feats.shape[0], self.mesh.n_data
+        padded = torch.cat([feats, feats[-1:].expand((-n) % q, -1)])
+        emb = self.featnet(shard_rows(padded, self.mesh))
+        return all_gather_rows(emb, self.mesh.data_group,
+                               "eval_embeddings")[:n]
 
     def classification_metrics(self, img_paths_global=None, features=None,
                                ks=(1, 3, 5)):
@@ -415,14 +436,15 @@ class JointEmbeddingTrainer(JointOptimization):
         return joint_classification_metrics(
             self.label_embeddings(), self.image_embeddings(features),
             np.asarray(paths), self.labelmap, energy=self.cfg.energy,
-            ks=ks, **self._energy_kw)
+            ks=ks, mesh=self.mesh, **self._energy_kw)
 
     def reconstruction(self, threshold=None):
         nl = self.labelmap.n_classes
         return reconstruction_metrics(
             self.label_embeddings()[:nl],
             self.graph.label_closure[:nl, :nl],
-            energy=self.cfg.energy, threshold=threshold, **self._energy_kw)
+            energy=self.cfg.energy, threshold=threshold, mesh=self.mesh,
+            **self._energy_kw)
 
     def edge_metrics(self, img_paths_global, features, *, threshold=None,
                      seed: int = 17):

@@ -1,5 +1,5 @@
 """End-to-end CNN joint trainer, the ``--use_CNN`` path: the port of
-``learning_embeddings_tpu/train/joint_cnn.py`` (one device, no mesh).
+``learning_embeddings_tpu/train/joint_cnn.py``.
 
 Image embeddings come from a CNN tower on raw pixels (``FeatCNN``), trained
 jointly with the label table. One step is:
@@ -32,14 +32,27 @@ energies through their Gram form.
 
 Ported: the ``order``, ``euc_cone`` and ``hyp_cone`` energies with every
 label optimizer, every backbone of ``models/resnet.py``, ``remat`` and
-``bn_stats_dtype`` (the tower's trunk options), and the warm start of the
-tower's trunk from a classifier checkpoint (``load_tower_trunk``). Not yet
-(ROADMAP.md): meshes (queue A item 21).
+``bn_stats_dtype`` (the tower's trunk options), the warm start of the
+tower's trunk from a classifier checkpoint (``load_tower_trunk``), and
+meshes.
+
+On a mesh (``mesh=``, as the JAX package's GSPMD step): every rank draws
+the global batch's negatives from the same ``RandomState`` and loads the
+same padded unique images (bucketed to a multiple of lcm(bucket,
+n_data)), then keeps its block of the images and of the edge slots over
+'data'. Each rank runs the tower on its images, with the BatchNorm
+statistics of the global tower batch, and the embeddings are gathered to
+every rank with a gradient that flows back to the rank that owns each
+image. The label table and the tower are replicated; the gradients are
+summed over 'data' (the losses are sums). The eval embeddings shard over
+'data' too, and the ranking and reconstruction tile their energies over
+the mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -53,8 +66,11 @@ from ..losses.joint_sampling import (JointGraph, filter_stage_edges,
 from ..losses.margin import variant_loss
 from ..models.embedder import FeatCNN, LabelEmbedder
 from ..models.resnet import init_params_
+from ..ops.bn import set_batch_norm_group
 from ..ops.image import device_scale
-from .classifier import resolve_device
+from ..parallel.mesh import (all_gather_rows, check_batch_divides,
+                             gather_rows, global_step_outputs, shard_rows)
+from .classifier import mesh_or_device
 from .joint import (DEFAULT_CURRICULUM, DEFAULT_K, JOINT_MODE,
                     JointOptimization, check_joint_options,
                     curriculum_levels_for_epoch, detached, epoch_edge_order,
@@ -106,15 +122,15 @@ class JointCNNTrainer(JointOptimization):
                  pixel_loader: Callable[[np.ndarray], np.ndarray],
                  cfg: JointCNNConfig, mesh=None):
         """pixel_loader(image_rows) -> (n, S, S, 3) uint8 (or f32 in
-        [0, 1]) NHWC pixels, a numpy array or a tensor on any device."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes are not ported yet (ROADMAP.md queue A item 21)")
+        [0, 1]) NHWC pixels, a numpy array or a tensor on any device.
+        mesh: a ``parallel.mesh.Mesh`` or None."""
         check_joint_options(cfg)
+        self.device = mesh_or_device(mesh, cfg.device)
+        check_batch_divides(cfg.batch_size, mesh)
+        self.mesh = mesh
         self.labelmap = labelmap
         self.graph = graph
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
         self.K = cfg.K if cfg.K is not None else DEFAULT_K[cfg.energy]
         mode = JOINT_MODE[cfg.energy]
         self.train_edges = np.asarray(train_edges, np.int32)
@@ -132,6 +148,8 @@ class JointCNNTrainer(JointOptimization):
         self.embedder.to(self.device)
         self.featcnn.to(device=self.device,
                         memory_format=torch.channels_last)
+        if mesh is not None:
+            set_batch_norm_group(self.featcnn, mesh.data_group)
         if cfg.freeze_images:
             # feature-extracting tower: only `fc` trains (the JAX
             # package's set_to_zero route for the trunk)
@@ -210,7 +228,8 @@ class JointCNNTrainer(JointOptimization):
     def prepare_batch(self, pos_from: np.ndarray, pos_to: np.ndarray):
         """Host side of one step: negative sampling, unique-pixel gather,
         slot indexing. Returns the argument tuple of `train_prepared`, on
-        the trainer's device."""
+        the trainer's device: on a mesh this rank's block of the pixels
+        and of the edges (the slots index the global unique images)."""
         g = self.graph
         nl = g.n_labels
         nf, nt = sample_joint_negatives_np(
@@ -224,9 +243,13 @@ class JointCNNTrainer(JointOptimization):
         # pad the unique-image count to a multiple of the bucket: the pad
         # repeats rows from the start, and they enter the BN statistics
         q = self.cfg.pixel_bucket or self.cfg.batch_size
+        if self.mesh is not None:
+            q = math.lcm(q, self.mesh.n_data)
         bucket = -(-len(img_rows) // q) * q
         padded = np.resize(img_rows, bucket)
-        pixels = self.pixel_loader(padded)
+        # every rank loads the same images (one draw of any augmentation)
+        # and keeps its block
+        pixels = shard_rows(self.pixel_loader(padded), self.mesh)
 
         def pix_idx(ids):
             # img_rows is sorted and unique: slot lookup by searchsorted
@@ -239,8 +262,10 @@ class JointCNNTrainer(JointOptimization):
 
         ids = [pos_from, pos_to, nf, nt]
         return (self._put(pixels),
-                *(self._put(np.asarray(a), torch.int64) for a in ids),
-                *(self._put(pix_idx(a), torch.int64) for a in ids))
+                *(self._put(shard_rows(np.asarray(a), self.mesh),
+                            torch.int64) for a in ids),
+                *(self._put(shard_rows(pix_idx(a), self.mesh), torch.int64)
+                  for a in ids))
 
     def _loss(self, pixels, pf, pt, nf, nt, pix_pf, pix_pt, pix_nf, pix_nt):
         cfg = self.cfg
@@ -248,6 +273,10 @@ class JointCNNTrainer(JointOptimization):
         self.featcnn.train(not cfg.freeze_bn)
         # NHWC (the JAX layout) → NCHW view, channels_last in memory
         img_embs = self.featcnn(device_scale(pixels).permute(0, 3, 1, 2))
+        if self.mesh is not None:
+            # every rank's edges may read every rank's images
+            img_embs = gather_rows(img_embs, self.mesh.data_group,
+                                   reduce_grad=True, tag="tower_embeddings")
 
         def emb(ids, pix):
             lab = self.embedder(torch.clamp_max(ids, nl - 1))
@@ -261,11 +290,13 @@ class JointCNNTrainer(JointOptimization):
             **self._energy_kw)
 
     def train_prepared(self, prepared):
-        """Device side of one step. Returns (loss, e_pos, e_neg) as device
-        tensors: the caller decides when to wait for them."""
+        """Device side of one step. Returns (loss, e_pos, e_neg) of the
+        global batch as device tensors: the caller decides when to wait for
+        them."""
         loss, (e_pos, e_neg) = self._loss(*prepared)
         self._update(loss)
-        return loss.detach(), e_pos.detach(), e_neg.detach()
+        return global_step_outputs(self.mesh, loss.detach(), e_pos.detach(),
+                                   e_neg.detach())
 
     def train_batch(self, pos_from: np.ndarray, pos_to: np.ndarray):
         """One step: host prep + update. Returns (loss, e_pos, e_neg)."""
@@ -322,9 +353,14 @@ class JointCNNTrainer(JointOptimization):
                                   batch_size: int = 32) -> np.ndarray:
         """Embed image rows through the tower in chunks of `batch_size`;
         the ragged tail is padded to a whole chunk with np.resize
-        (harmless: BN runs in eval mode). Returns (n, dim) numpy."""
+        (harmless: BN runs in eval mode). On a mesh each chunk shards over
+        'data', so the chunk size rounds up to a multiple of the data
+        shards. Returns (n, dim) numpy."""
         loader = loader or self.pixel_loader
         rows = np.asarray(rows)
+        if self.mesh is not None:
+            q = self.mesh.n_data
+            batch_size = -(-batch_size // q) * q
         out = []
         for i in range(0, len(rows), batch_size):
             chunk = rows[i:i + batch_size]
@@ -337,10 +373,15 @@ class JointCNNTrainer(JointOptimization):
 
     @torch.no_grad()
     def image_embeddings_from_pixels(self, pixels) -> torch.Tensor:
-        """Eval forward of the tower (eval-mode BN) on NHWC pixels."""
+        """Eval forward of the tower (eval-mode BN) on NHWC pixels; on a
+        mesh each rank embeds its block over 'data' and the embeddings are
+        gathered (the row count must divide over the data shards)."""
         self.featcnn.eval()
-        x = device_scale(self._put(pixels)).permute(0, 3, 1, 2)
-        return self.featcnn(x)
+        x = device_scale(self._put(shard_rows(pixels, self.mesh)))
+        emb = self.featcnn(x.permute(0, 3, 1, 2))
+        if self.mesh is None:
+            return emb
+        return all_gather_rows(emb, self.mesh.data_group, "eval_embeddings")
 
     @torch.no_grad()
     def label_embeddings(self) -> torch.Tensor:
@@ -353,7 +394,7 @@ class JointCNNTrainer(JointOptimization):
         return joint_classification_metrics(
             self.label_embeddings(), image_embs,
             np.asarray(img_paths_global), self.labelmap,
-            energy=self.cfg.energy, ks=ks, **self._energy_kw)
+            energy=self.cfg.energy, ks=ks, mesh=self.mesh, **self._energy_kw)
 
     def edge_metrics(self, img_paths_global, image_embs, *,
                      threshold=None, seed: int = 17):
@@ -372,5 +413,6 @@ class JointCNNTrainer(JointOptimization):
         return reconstruction_metrics(
             self.label_embeddings()[:nl],
             self.graph.label_closure[:nl, :nl],
-            energy=self.cfg.energy, threshold=threshold, **self._energy_kw)
+            energy=self.cfg.energy, threshold=threshold, mesh=self.mesh,
+            **self._energy_kw)
 

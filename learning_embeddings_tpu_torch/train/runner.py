@@ -1,5 +1,5 @@
 """Experiment runners, the epoch loops behind the CLIs: the port of
-``learning_embeddings_tpu/train/runner.py``, on one device.
+``learning_embeddings_tpu/train/runner.py``.
 
 * ``run_classifier`` — the ETHEC multi-head CNN classifier: a train pass
   an epoch over the threaded ``ImagePipeline`` in a weighted-resampled or
@@ -22,7 +22,19 @@ competing against the original best; the best model (and its threshold)
 is reloaded before the final test; a threshold is never swept on test
 data.
 
-A mesh other than "auto" or None raises: "auto" means one device here.
+Meshes, as in the JAX runners: ``mesh="auto"`` (the classifier's and the
+label-only runner's default) takes every rank of the process group when
+one is up (``torchrun``, ``parallel.mesh.init_from_env``) and the batch
+divides over them, with ``n_model`` ranks of each data shard holding the
+classifier's tensor-parallel head; without a process group it means one
+device. A ``parallel.mesh.Mesh`` is used as it is; None is one device.
+Unlike the JAX runner, "auto" raises where the batch does not divide over
+several ranks, or where ``n_model > 1`` finds no ranks to shard over: one
+device per rank would train copies side by side. The classifier's evals
+pad a ragged tail batch to the full batch on a mesh (the padding rows
+dropped from the scores and the loss). Only rank 0 writes the manifest,
+the metrics, the reports, the plots and the checkpoints
+(``train/experiment.py``); every rank reads a checkpoint back.
 """
 
 from __future__ import annotations
@@ -35,17 +47,39 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh, is_writer, make_mesh
 from .experiment import Checkpointer, ExperimentDir, MetricsLogger, write_manifest
 
 __all__ = ["run_classifier", "run_label_embedding", "run_joint_embedding",
            "run_joint_cnn"]
 
 
-def _one_device(mesh) -> None:
-    """"auto" and None mean the trainer's one device."""
-    if mesh not in ("auto", None):
-        raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP.md queue A item 21)")
+def _resolve_mesh(mesh, batch_size: int, device, n_model: int = 1):
+    """A Mesh or None as given; "auto": every rank of the process group
+    (n_model of them to a data shard) when the batch divides over the data
+    shards, one device without a process group (JAX
+    ``train/runner.py:156-166, 365-373``). Raises where one device per
+    rank would train side by side, or TP has no ranks to shard over."""
+    n_model = max(1, int(n_model))
+    if mesh is None or isinstance(mesh, Mesh):
+        if n_model > 1 and (mesh is None or mesh.n_model != n_model):
+            raise ValueError(f"n_model={n_model} asks for a tensor-parallel "
+                             f"head but the mesh is {mesh}")
+        return mesh
+    if mesh != "auto":
+        raise TypeError(f"mesh must be 'auto', None or a parallel.mesh.Mesh,"
+                        f" got {mesh!r}")
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1 and n_model == 1:
+        return None
+    n_data = max(world // n_model, 1)
+    if batch_size % n_data:
+        raise ValueError(
+            f"batch_size {batch_size} must divide evenly over the "
+            f"{n_data} 'data' shards of the {world} ranks")
+    return make_mesh(world // n_model, n_model, device=device)
 
 
 def _floats(stats: Dict) -> Dict[str, float]:
@@ -59,19 +93,34 @@ def _floats(stats: Dict) -> Dict[str, float]:
 
 def _eval_pass(trainer, pipe, order):
     """Scores, level labels, multi-hots, the loss summed over rows and the
-    row count of one split (one device: no batch is padded)."""
+    row count of one split. On a mesh a ragged tail batch is padded to the
+    full batch (repeating its last row) so that it shards evenly; the
+    padding rows are dropped from the scores, and a padded batch's loss,
+    whose mean includes them, counts only where no full batch does."""
+    bs = trainer.cfg.batch_size
     scores, labels, multihots = [], [], []
     loss_sum, loss_rows = 0.0, 0
+    pad_loss_sum, pad_loss_rows = 0.0, 0
     for batch in pipe.batches(order):
         n = len(batch["image"])
+        padded = trainer.mesh is not None and n < bs
+        if padded:
+            batch = {k: np.concatenate([v, np.repeat(v[-1:], bs - n, 0)])
+                     for k, v in batch.items()}
         b = trainer.put_batch(batch["image"], batch["level_labels"],
                               batch["multihot"])
         loss, s = trainer.eval_step(trainer.state, *b)
-        scores.append(s.float().cpu().numpy())
-        labels.append(batch["level_labels"])
-        multihots.append(batch["multihot"])
-        loss_sum += float(loss) * n
-        loss_rows += n
+        scores.append(s.float().cpu().numpy()[:n])
+        labels.append(batch["level_labels"][:n])
+        multihots.append(batch["multihot"][:n])
+        if padded:
+            pad_loss_sum += float(loss) * n
+            pad_loss_rows += n
+        else:
+            loss_sum += float(loss) * n
+            loss_rows += n
+    if loss_rows == 0:
+        loss_sum, loss_rows = pad_loss_sum, pad_loss_rows
     return (np.concatenate(scores), np.concatenate(labels),
             np.concatenate(multihots), loss_sum, max(loss_rows, 1))
 
@@ -117,6 +166,8 @@ def _write_level_report(exp: ExperimentDir, phase: str, epoch: int,
                         flat: Dict[str, float]) -> None:
     from ..eval.reports import Summarize
 
+    if not is_writer():
+        return
     s = Summarize(os.path.join(exp.stats, f"{phase}{epoch}"))
     s.make_heading(f"Classification Summary - Epoch {epoch} {phase}", 1)
     s.make_table([[k, f"{v:.4f}"] for k, v in sorted(flat.items())],
@@ -164,11 +215,7 @@ def run_classifier(
     from ..data import ImagePipeline, WeightedResampler, shuffled_order
     from .classifier import ClassifierTrainer
 
-    _one_device(mesh)
-    if n_model > 1:
-        raise NotImplementedError(
-            "n_model > 1 (a tensor-parallel head) is not ported yet "
-            "(ROADMAP.md queue A item 21)")
+    mesh = _resolve_mesh(mesh, cfg.batch_size, cfg.device, n_model)
     exp = ExperimentDir(experiment_dir, experiment_name)
     write_manifest(exp, manifest_args or {})
     logger = MetricsLogger(exp)
@@ -180,7 +227,8 @@ def run_classifier(
         cfg = dataclasses.replace(
             cfg,
             steps_per_epoch=max(len(datasets["train"]) // cfg.batch_size, 1))
-    trainer = ClassifierTrainer(labelmap, cfg, grayscale=use_grayscale)
+    trainer = ClassifierTrainer(labelmap, cfg, grayscale=use_grayscale,
+                                mesh=mesh)
     if load_backbone_from:
         trainer.load_backbone_state_dict(load_backbone_from)
     pipes = {
@@ -236,11 +284,16 @@ def run_classifier(
             trainer.state, loss = trainer.train_step(trainer.state, *b)
             return loss
 
-        trace_steps(one_step, profile_steps, tdir, device=trainer.device,
-                    sync=lambda out: float(out))
+        if is_writer():
+            trace_steps(one_step, profile_steps, tdir,
+                        device=trainer.device, sync=lambda out: float(out))
+            for name, ms, share in summarize_trace(tdir,
+                                                   profile_steps)[:10]:
+                logger.scalar(f"profile/{name}_ms", ms, 0)
+        else:   # the same steps (and collectives), not traced
+            for _ in range(profile_steps):
+                float(one_step())
         train_steps += 1 + profile_steps
-        for name, ms, share in summarize_trace(tdir, profile_steps)[:10]:
-            logger.scalar(f"profile/{name}_ms", ms, 0)
 
     def evaluate(split, epoch, tag):
         nonlocal thresholds
@@ -258,7 +311,7 @@ def run_classifier(
         logger.scalars(tag, flat, epoch)
         logger.scalar(f"{tag}/loss", loss / loss_rows, epoch)
         _write_level_report(exp, tag, epoch, flat)
-        if cfg.head_override == "bottleneck2d":
+        if cfg.head_override == "bottleneck2d" and is_writer():
             # the per-eval 2-d label-vector plot
             from ..viz.contours import plot_label_vectors
 
@@ -332,9 +385,10 @@ def run_classifier(
         evaluate("val", max(best_epoch, 0), "best_val")
     scores, ll, test_score, flat = evaluate(
         "test", max(best_epoch, 0), "best_test")
-    np.save(os.path.join(exp.stats, "predicted_scores.npy"), scores)
-    np.save(os.path.join(exp.stats, "correct_labels.npy"), ll)
-    if generate_plots:
+    if is_writer():
+        np.save(os.path.join(exp.stats, "predicted_scores.npy"), scores)
+        np.save(os.path.join(exp.stats, "correct_labels.npy"), ll)
+    if generate_plots and is_writer():
         # per-class PR curves + F1 against train frequency
         from ..eval.multilabel import render_pr_curves, render_score_vs_freq
 
@@ -376,12 +430,12 @@ def run_label_embedding(
 ):
     from .embedding import EmbeddingTrainer
 
-    _one_device(mesh)
+    mesh = _resolve_mesh(mesh, config.batch_size, config.device)
     exp = ExperimentDir(experiment_dir, experiment_name)
     write_manifest(exp, manifest_args or {})
     logger = MetricsLogger(exp)
     ckpt = Checkpointer(exp)
-    trainer = EmbeddingTrainer(labelmap, splits, config)
+    trainer = EmbeddingTrainer(labelmap, splits, config, mesh=mesh)
     if init_embeddings is not None:
         trainer.load_embedding_table(init_embeddings)
 
@@ -416,7 +470,7 @@ def run_label_embedding(
         t0 = time.time()
         stats = _floats(trainer.train_epoch(rng))
         logger.scalars("train", stats, epoch)
-        if viz_every and epoch % viz_every == 0:
+        if viz_every and epoch % viz_every == 0 and is_writer():
             from ..viz.toy import plot_toy_embedding
 
             plot_toy_embedding(
@@ -572,11 +626,11 @@ def run_joint_embedding(
     (--load_emb_from loads both)."""
     from .joint import JointEmbeddingTrainer
 
-    _one_device(mesh)
+    mesh = _resolve_mesh(mesh, config.batch_size, config.device)
     exp = ExperimentDir(experiment_dir, experiment_name)
     write_manifest(exp, manifest_args or {})
     trainer = JointEmbeddingTrainer(labelmap, graph, train_edges, features,
-                                    config)
+                                    config, mesh=mesh)
     if init_embeddings is not None:
         trainer.load_embedding_table(init_embeddings)
     if init_threshold is not None:
@@ -637,11 +691,11 @@ def run_joint_cnn(
     a prefix would score one branch only)."""
     from .joint_cnn import JointCNNTrainer
 
-    _one_device(mesh)
+    mesh = _resolve_mesh(mesh, config.batch_size, config.device)
     exp = ExperimentDir(experiment_dir, experiment_name)
     write_manifest(exp, manifest_args or {})
     trainer = JointCNNTrainer(labelmap, graph, train_edges, pixel_loader,
-                              config)
+                              config, mesh=mesh)
     if init_embeddings is not None:
         trainer.load_embedding_table(init_embeddings)
     if init_threshold is not None:

@@ -266,10 +266,17 @@ def test_bottleneck2d_plots_and_profile(split, tmp_path):
 
 
 def test_unported_runner_options_raise(split, tmp_path):
+    """Without a process group a tensor-parallel head has no ranks to
+    shard over and raises the JAX mesh error, where the JAX runner would
+    quietly train on one device; a mesh that is no parallel.mesh.Mesh
+    raises (meshed runs: tests/test_torch_mesh_runner.py)."""
     images, lm, ds, _, _ = split
     _, cfg = _configs()
-    for kw in (dict(n_model=2), dict(mesh="data")):
-        with pytest.raises(NotImplementedError, match="item 21"):
+    for kw, err, match in ((dict(n_model=2), ValueError,
+                            r"does not fit the 1 available device\(s\)"),
+                           (dict(mesh="data"), TypeError,
+                            "parallel.mesh.Mesh")):
+        with pytest.raises(err, match=match):
             run_classifier(lm, ds, images, cfg,
                            experiment_dir=str(tmp_path), experiment_name="x",
                            n_epochs=1, **kw)

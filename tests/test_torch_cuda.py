@@ -485,3 +485,86 @@ def test_remat_step_launch_counts(gen):
 def test_flax_route_launches_no_bn_kernel(gen):
     assert _resnet50_step_counts(bn_impl="flax") == (0, 0)
     assert _resnet50_step_counts(bn_impl="flax", bn_stats_rows=2) == (53, 53)
+
+
+def _cls_batch(lm, B, size, seed):
+    rng = np.random.RandomState(seed)
+    imgs = rng.randint(0, 256, (B, size, size, 3)).astype(np.uint8)
+    ll = lm.leaf_paths()[rng.randint(0, lm.levels[-1], B)].astype(np.int32)
+    mh = np.zeros((B, lm.n_classes), np.float32)
+    mh[np.arange(B)[:, None], ll + np.asarray(lm.level_start)] = 1.0
+    return imgs, ll, mh
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(gen, tmp_path):
+    """A (2, 1) mesh of two gloo ranks sharing the card: the f32
+    ResNet-18@32 step with K1/K2 (20 + 20 a rank), with ghost statistics
+    of the first 2 rows of the global batch (rank 1 holds none of them and
+    launches no K1) and with the flax route (the library's synchronised
+    statistics), each against the one-process step on the card."""
+    import dataclasses
+
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.parallel.launch import run_ranks
+    from learning_embeddings_tpu_torch.parallel.programs import (
+        classifier_run)
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig)
+
+    lm = toy_labelmap(3, 3)
+    base = ClassifierConfig(backbone="resnet18", lr=1e-3, image_size=32,
+                            batch_size=8, dtype=torch.float32)
+    cases = [dict(labelmap=lm, cfg=dataclasses.replace(base, **kw),
+                  batches=[_cls_batch(lm, 8, 32, 0)])
+             for kw in ({}, {"bn_stats_rows": 2}, {"bn_impl": "flax"})]
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False   # f32 tolerances: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        one = [classifier_run(**kw) for kw in cases]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    res = run_ranks("learning_embeddings_tpu_torch.parallel.programs:"
+                    "classifier_cases", 2,
+                    dict(n_data=2, n_model=1, cases=cases, device="cuda",
+                         full_f32=True),
+                    workdir=str(tmp_path), device="cuda", backend="gloo",
+                    timeout_s=600)
+    for i, name in enumerate(("fused", "ghost", "flax")):
+        for rank, r in enumerate(res):
+            got = r[i]
+            np.testing.assert_allclose(got["losses"], one[i]["losses"],
+                                       rtol=1e-5, err_msg=name)
+            for k, v in got["running"].items():
+                np.testing.assert_array_equal(v, res[0][i]["running"][k])
+                np.testing.assert_allclose(v, one[i]["running"][k],
+                                           rtol=1e-5, atol=1e-6)
+            c = got["counts"]
+            assert c["collective_bn_stats"] == c["collective_bn_corr"] == 20
+            want_k1 = {"fused": 20, "ghost": 20 if rank == 0 else 0,
+                       "flax": 0}[name]
+            assert (c["bn_stats"], c["bn_corr"]) == (
+                want_k1, 0 if name == "flax" else 20), (name, rank)
+
+
+def test_k3_tiles_on_a_mesh_equal_the_whole(gen, tmp_path):
+    """The order eval's energies at 344 × 5286, D = 10, tiled over a
+    (2, 2) mesh of gloo ranks on the card, gathered: bit for bit the
+    one-process kernel's, one exact_d launch a rank."""
+    from learning_embeddings_tpu_torch.parallel.launch import run_ranks
+
+    u = torch.randn((344, 10), device="cuda", generator=gen)
+    v = torch.randn((5286, 10), device="cuda", generator=gen)
+    whole = k3.pairwise_order(u, v).cpu().numpy()
+    res = run_ranks("learning_embeddings_tpu_torch.parallel.programs:"
+                    "pairwise_tiles", 4,
+                    dict(n_data=2, n_model=2, device="cuda", kind="order",
+                         u=u.cpu().numpy(), v=v.cpu().numpy()),
+                    workdir=str(tmp_path), device="cuda", backend="gloo",
+                    timeout_s=600)
+    for r in res:
+        np.testing.assert_array_equal(r["E"], whole)
+        assert r["counts"]["pairwise_order"] == 1
+        assert r["counts"]["pairwise_order_exact_d"] == 1

@@ -44,6 +44,7 @@ from learning_embeddings_tpu.hierarchy import (
     label_graph_from_paths as jax_graph, split_edges as jax_split,
     toy_labelmap as jax_toy)
 from learning_embeddings_tpu.losses import margin as jm
+from learning_embeddings_tpu_torch.parallel.mesh import Mesh
 from learning_embeddings_tpu.train.embedding import (
     EmbeddingTrainer as JaxTrainer,
     EmbeddingTrainerConfig as JaxConfig)
@@ -488,10 +489,15 @@ def test_invalid_options_raise(kw, err, match):
 
 
 def test_mesh_and_missing_card_raise():
+    """A mesh must be a parallel.mesh.Mesh (meshed runs:
+    tests/test_torch_mesh_joint.py); a batch that does not shard raises."""
     lm, splits = toy(2, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         EmbeddingTrainer(lm, splits, EmbeddingTrainerConfig(device="cpu"),
                          mesh=object())
+    with pytest.raises(ValueError, match="divide evenly"):
+        EmbeddingTrainer(lm, splits, EmbeddingTrainerConfig(
+            device="cpu", batch_size=3), mesh=Mesh(2, 1, "cpu"))
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA card"):

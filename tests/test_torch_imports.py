@@ -67,7 +67,10 @@ def test_port_has_the_slice_modules():
                 # slice 9
                 "csrc/le_loader.cc", "csrc/Makefile",
                 "data/native_loader.py", "data/preprocess.py",
-                "data/build_db.py", "cli/debug_launchers.py"]:
+                "data/build_db.py", "cli/debug_launchers.py",
+                # slice 10
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/launch.py", "parallel/programs.py"]:
         assert (PORT / rel).is_file(), rel
     assert (ROOT / "chip_smoke.py").is_file()
 

@@ -178,7 +178,9 @@ def test_unported_or_invalid_options_raise(setup, kw, err, match):  # noqa
 
 
 def test_mesh_and_missing_card_raise(setup):  # noqa: F811
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh must be a parallel.mesh.Mesh (meshed runs:
+    tests/test_torch_mesh_joint.py)."""
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         JointCNNTrainer(setup["lm"], setup["graph"], setup["edges"],
                         setup["loader"], JointCNNConfig(energy="order",
                                                         device="cpu"),

@@ -443,8 +443,10 @@ def test_invalid_options_raise_as_in_jax(setup, kw, match):
 
 
 def test_mesh_and_missing_card_raise(setup):
+    """A mesh must be a parallel.mesh.Mesh (meshed runs:
+    tests/test_torch_mesh_joint.py)."""
     args = (setup["lm"], setup["graph"], setup["edges"], setup["feats"])
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         JointEmbeddingTrainer(*args, JointTrainerConfig(feature_dim=32,
                                                         device="cpu"),
                               mesh=object())
@@ -707,7 +709,7 @@ def test_runner_takes_its_warm_start_and_scores_train_images(setup,
     np.testing.assert_allclose(tr.embedder.embedding.detach().numpy(),
                                table)
     assert res["best_epoch"] == -1 and "edge_f1" not in res["test_metrics"]
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         run_joint_embedding(
             setup["lm"], setup["graph"], setup["edges"], setup["feats"],
             JointTrainerConfig(device="cpu", **RUNNER_CFG),

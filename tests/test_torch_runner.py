@@ -201,14 +201,16 @@ def test_label_runner_plots_frames_at_dim_2(tmp_path):
 
 
 def test_runners_refuse_a_mesh(tmp_path):
+    """The runners take "auto", None or a parallel.mesh.Mesh: any other
+    mesh raises (meshed runs: tests/test_torch_mesh_runner.py)."""
     lm, splits = toy_splits()
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         run_label_embedding(lm, splits,
                             EmbeddingTrainerConfig(device="cpu", **CFG),
                             experiment_dir=str(tmp_path),
                             experiment_name="m", n_epochs=1, mesh=object())
     graph, edges = build_joint_graph(lm, lm.leaf_paths())
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         run_joint_cnn(lm, graph, edges, None, JointCNNConfig(device="cpu"),
                       experiment_dir=str(tmp_path), experiment_name="j",
                       n_epochs=1, mesh="data")
