@@ -35,8 +35,11 @@ and prints no result line):
             (exact) and normal inputs; and for phase 15, K1/K2 at the
             rows each rank gives them there: ResNet-50@448's 12 shapes at
             64, 16 and 8 rows, ResNet-18@64's 5 at 4 rows in f32 and at 4
-            and 2 rows in bf16, ResNet-18@32's 5 at 4 rows, each on
-            integer-valued (exact) and normal inputs;
+            and 2 rows in bf16, ResNet-18@32's 5 at 4 rows, and the
+            spatial shapes of phase 15 (f), each image's H halved:
+            ResNet-50@448's 12 at 128 rows, ResNet-18@64's 5 at 8 rows in
+            f32 and at 4 and 2 rows in bf16; each on integer-valued
+            (exact) and normal inputs;
             then batch_norm_train's forward and backward on the card
             against the CPU path, one small classifier train step and one
             small joint step with its eval on the card against the CPU,
@@ -205,7 +208,21 @@ and prints no result line):
             (d) an NCCL group over every card (one on a one-card machine)
             runs (a)'s step at batch 8 a card and reduces known values;
             with two or more cards, (a) over them on NCCL, a rank a card;
-            (e) entry.dryrun_multichip(4, device="cuda").
+            (e) entry.dryrun_multichip(4, device="cuda"), whose spatial
+            stage on (2, 2) exchanges 36 + 34 halos a rank;
+            (f) spatial partitioning (slice 11): the images' H over the
+            'model' axis of a (1, 2) gloo mesh of two ranks sharing the
+            card, every layer of ResNet-50@448 H-sharded with halo
+            exchanges: the bf16 step at batch 128 (3 steps, 3 timed)
+            against (a)'s one-process step: losses within 1e-2 relative,
+            53 + 53 K1/K2 launches and 18 + 17 halo exchanges a rank a
+            step (the stem, the pool and 16 3×3 convs; the image takes no
+            gradient), no channels_last copy, running statistics equal on
+            both ranks bit for bit, peak memory a rank at most 0.6 of one
+            process's; ms/step and the collectives' share by tag; the f32
+            ResNet-18@64 step (TF32 off) within 1e-5 of one process; and
+            cli/ethec_experiments.py --spatial_partition --n_model 2 in the
+            two ranks (ResNet-50@448, batch 32, on phase 10's images).
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last is {"ok": true, "device": {...}}. A `kernels` JSON line and the
@@ -2917,6 +2934,12 @@ def zoo_kernels_phase(batch):
                                        library=False)}
 
 
+def _half_h(shapes):
+    """Per-image (R, C) BN shapes with H halved: a rank's rows under
+    spatial partitioning over two model ranks."""
+    return {(R // 2, C): n for (R, C), n in shapes.items()}
+
+
 def mesh_kernels_phase():
     """Phase 2's additions for phase 15: K1/K2 at the rows each rank gives
     them there, on integer-valued (exact) and normal inputs. ResNet-50@448
@@ -2925,7 +2948,10 @@ def mesh_kernels_phase():
     a card); ResNet-18@64 at 4 rows in f32 ((c): 8 over two data shards);
     the dryrun twin's bf16 ResNet-18 at 64² (4 rows; 2 in its grad_accum
     micro-steps) and at 32² (its tower, 8 edges bucketed to 8, 4 a
-    rank)."""
+    rank); and (f)'s spatial shapes, each image's H halved over two model
+    ranks: ResNet-50@448 at 128 images (the bf16 step), ResNet-18@64 at 8
+    images in f32 (the small step) and at 4 and 2 images in bf16 (the
+    dryrun twin's spatial stage on (2, 2), and JAX's 2 a micro-step)."""
     import torch
 
     tables = {"r50_448_rows64": (64, RESNET50_448_BN, None),
@@ -2934,7 +2960,15 @@ def mesh_kernels_phase():
               "r18_64_rows4_f32": (4, RESNET18_64_BN, torch.float32),
               "r18_64_rows4": (4, RESNET18_64_BN, None),
               "r18_64_rows2": (2, RESNET18_64_BN, None),
-              "r18_32_rows4": (4, RESNET18_32_BN, None)}
+              "r18_32_rows4": (4, RESNET18_32_BN, None),
+              "spatial_r50_448_rows128_half_h": (
+                  128, _half_h(RESNET50_448_BN), None),
+              "spatial_r18_64_rows8_half_h_f32": (
+                  8, _half_h(RESNET18_64_BN), torch.float32),
+              "spatial_r18_64_rows4_half_h": (4, _half_h(RESNET18_64_BN),
+                                              None),
+              "spatial_r18_64_rows2_half_h": (2, _half_h(RESNET18_64_BN),
+                                              None)}
     return {name: kernels_phase(rows, shapes=shapes, ragged=None,
                                 tag=f"kernels-mesh {name}", dtype=dtype)
             for name, (rows, shapes, dtype) in tables.items()}
@@ -3744,13 +3778,176 @@ def mesh_dryrun_phase(n=4):
     t = time.perf_counter()
     torch.cuda.empty_cache()
     summary = dryrun_multichip(n, device=DEV)
-    if summary.get("ok") is not True:
+    # the spatial stage on (n/2, 2): two micro-steps of ResNet-18@64, each
+    # 18 forward and 17 backward halo exchanges a rank
+    if (summary.get("ok") is not True
+            or not math.isfinite(summary["spatial_grad_accum"])
+            or summary["spatial_halos"] != {"halo": 36, "halo_grad": 34}):
         raise AssertionError(f"dryrun_multichip: {summary}")
     return {"summary": summary, "seconds": time.perf_counter() - t}
 
 
+def mesh_spatial_phase(labelmap, one, batch=128, steps=3, timed=3,
+                       backbone="resnet50", image_size=448):
+    """(f) Spatial partitioning: the images' H over the 'model' axis of a
+    (1, 2) gloo mesh of two ranks sharing the card, every layer of the
+    ResNet-50@448 trunk H-sharded with halo exchanges. The bf16 step at
+    batch 128 (multi_level_ce, Adam 1e-5) against `one`, (a)'s one-process
+    step from the same weights and batches: losses within 1e-2 relative,
+    53 + 53 K1/K2 launches a rank a step, the halo exchanges a step that
+    ``spatial_halo_counts`` predicts, no channels_last copy, running
+    statistics equal on both ranks bit for bit, peak memory a rank at most
+    0.6 of one process's; ms/step and the collectives' share by tag. Then
+    the f32 ResNet-18@64 step (TF32 off, batch 8): loss, eval loss and
+    eval scores within 1e-5 of one process; and
+    cli/ethec_experiments.py --spatial_partition --n_model 2 in the two
+    ranks on 64/32/32 of phase 10's records (ResNet-50@448, batch 32)."""
+    import numpy as np
+    import torch
+
+    from learning_embeddings_tpu_torch import data
+    from learning_embeddings_tpu_torch.models.resnet import (
+        make_trunk, spatial_halo_counts)
+    from learning_embeddings_tpu_torch.parallel.programs import (
+        classifier_run, synthetic_batches)
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig)
+
+    t = time.perf_counter()
+    cfg = ClassifierConfig(backbone=backbone, criterion="multi_level_ce",
+                           lr=1e-5, image_size=image_size, batch_size=batch,
+                           bn_impl="pallas", spatial_partition=True,
+                           device=DEV)
+    res = _ranks("classifier_steps", 2, dict(
+        n_data=1, n_model=2, device=DEV, labelmap=labelmap, cfg=cfg,
+        synthetic=(steps, 0), timed_steps=timed))
+    n_bn = BACKBONE_BN_FEATURES[backbone][0]
+    halos = spatial_halo_counts(make_trunk(backbone), image_size, 2)
+    want = {"bn_stats": n_bn * steps, "bn_corr": n_bn * steps,
+            "collective_halo": halos["halo"] * steps,
+            "collective_halo_grad": halos["halo_grad"] * steps,
+            "channels_last_copies": 0}
+    for rank, r in enumerate(res):
+        worst = max(_rel(a, b) for a, b in zip(r["losses"], one["losses"]))
+        if not worst <= 1e-2:
+            raise AssertionError(f"spatial (1,2) rank {rank}: losses "
+                                 f"{r['losses']} against {one['losses']}")
+        got = {k: r["counts"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"spatial (1,2) rank {rank}: {got}, "
+                                 f"expected {want}")
+        for k, v in r["running"].items():
+            if not (v == res[0]["running"][k]).all():
+                raise AssertionError(f"running statistic {k} differs "
+                                     f"between the spatial ranks")
+        if not r["peak_gib"] <= 0.6 * one["peak_gib"]:
+            raise AssertionError(f"spatial (1,2) rank {rank}: peak "
+                                 f"{r['peak_gib']:.2f} GiB against "
+                                 f"{one['peak_gib']:.2f} in one process")
+    out = {"halos_predicted": halos,
+           "ranks": [{k: r.get(k) for k in ("losses", "counts",
+                                            "ms_per_step", "timed_step_ms",
+                                            "collective_ms",
+                                            "collective_share", "peak_gib")}
+                     for r in res]}
+    log(f"[mesh] (f) spatial {backbone}@{image_size} batch {batch} on (1,2) "
+        f"gloo ranks: {[round(x['ms_per_step'], 2) for x in out['ranks']]} "
+        f"ms/step against {one['ms_per_step']:.2f} in one process; losses "
+        f"{res[0]['losses']} vs {one['losses']}; peak "
+        f"{[round(x['peak_gib'], 2) for x in out['ranks']]} GiB a rank "
+        f"against {one['peak_gib']:.2f}; {n_bn} + {n_bn} K1/K2 and "
+        f"{halos['halo']} + {halos['halo_grad']} halo exchanges a rank a "
+        f"step; collectives "
+        f"{[round(x['collective_share'], 3) for x in out['ranks']]} of a "
+        f"step: {res[0]['collective_ms']} ms")
+
+    # the f32 step at a small size, TF32 off
+    small = ClassifierConfig(backbone="resnet18", criterion="multi_level_ce",
+                             lr=1e-3, image_size=64, batch_size=8,
+                             dtype=torch.float32, spatial_partition=True,
+                             device=DEV)
+    kw = dict(labelmap=labelmap, cfg=small, synthetic=(1, 0),
+              eval_batch=synthetic_batches(labelmap, 1, 8, 64, 1)[0])
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = classifier_run(**kw)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    res32 = _ranks("classifier_cases", 2, dict(
+        n_data=1, n_model=2, cases=[kw], device=DEV, full_f32=True))
+    scale = float(np.abs(ref["eval_scores"]).max())
+    small_halos = spatial_halo_counts(make_trunk("resnet18"), 64, 2)
+    worst = 0.0
+    for rank, (r,) in enumerate(res32):
+        err = float(np.abs(r["eval_scores"] - ref["eval_scores"]).max())
+        loss_err = max(_rel(r["losses"][0], ref["losses"][0]),
+                       _rel(r["eval_loss"], ref["eval_loss"]))
+        worst = max(worst, loss_err, err / scale)
+        c = r["counts"]
+        if (loss_err > 1e-5 or err > 1e-5 * scale
+                or (c["bn_stats"], c["bn_corr"]) != (20, 20)
+                or (c["collective_halo"], c["collective_halo_grad"])
+                != (small_halos["halo"], small_halos["halo_grad"])):
+            raise AssertionError(
+                f"spatial f32 (1,2) rank {rank}: losses {r['losses']} / "
+                f"{r['eval_loss']} against {ref['losses']} / "
+                f"{ref['eval_loss']}, scores |Δ| {err:.3e} of {scale:.3e}, "
+                f"counts {c}")
+    out["f32"] = {"worst_rel": worst, "losses": res32[0][0]["losses"],
+                  "one_process_losses": ref["losses"],
+                  "counts": [r[0]["counts"] for r in res32]}
+    log(f"[mesh] (f) spatial f32 ResNet-18@64 on (1,2): loss, eval loss "
+        f"and scores within {worst:.2e} of one process (limit 1e-5)")
+
+    # the CLI in the two ranks, on a cut of phase 10's records
+    root = os.path.join(EXPERIMENTS, "classifier_data")
+    cut = os.path.join(EXPERIMENTS, "spatial_splits")
+    os.makedirs(cut, exist_ok=True)
+    for split, n in (("train", 64), ("val", 32), ("test", 32)):
+        recs = data.load_ethec_json(os.path.join(root, "splits",
+                                                 f"{split}.json"))
+        data.save_ethec_json(list(recs)[:n], os.path.join(cut,
+                                                          f"{split}.json"))
+    argv = ["--data_dir", cut, "--image_dir", os.path.join(root, "images"),
+            "--experiment_dir", EXPERIMENTS, "--experiment_name",
+            "spatial_cli", "--model", backbone, "--loss", "multi_level",
+            "--image_size", str(image_size), "--batch_size", "32", "--lr",
+            "1e-5", "--n_workers", "4", "--n_epochs", "1", "--set_mode",
+            "train", "--spatial_partition", "--n_model", "2", "--device",
+            DEV]
+    t_cli = time.perf_counter()
+    cli = _ranks("cli_main", 2, dict(
+        module="learning_embeddings_tpu_torch.cli.ethec_experiments",
+        argv=argv, keep=("best_epoch", "train_steps", "test_metrics"),
+        jsonl_only=True, with_counts=True))
+    steps_cli = cli[0]["train_steps"]
+    for rank, r in enumerate(cli):
+        c = r["counts"]
+        if (steps_cli < 1 or r["train_steps"] != steps_cli
+                or (c["bn_stats"], c["bn_corr"])
+                != (n_bn * steps_cli, n_bn * steps_cli)
+                or c["collective_halo_grad"]
+                != halos["halo_grad"] * steps_cli
+                or not all(map(math.isfinite, r["test_metrics"].values()))):
+            raise AssertionError(f"spatial CLI rank {rank}: {r}")
+    out["cli"] = {"seconds": time.perf_counter() - t_cli,
+                  "train_steps": steps_cli,
+                  "test_metrics": cli[0]["test_metrics"],
+                  "counts": [r["counts"] for r in cli]}
+    log(f"[mesh] (f) cli/ethec_experiments.py --spatial_partition --n_model "
+        f"2 in two ranks: {steps_cli} train steps, {out['cli']['seconds']:.1f}"
+        f" s, test micro-F1 {cli[0]['test_metrics']['micro_f1']:.4f}")
+    out["seconds"] = time.perf_counter() - t
+    log(f"[mesh] (f) took {out['seconds']:.1f} s")
+    return out
+
+
 def mesh_phase(labelmap):
-    """Phase 15: (a)-(e); returns the records and the launches of each
+    """Phase 15: (a)-(f); returns the records and the launches of each
     mesh path, rank by rank."""
     from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
 
@@ -3760,6 +3957,7 @@ def mesh_phase(labelmap):
     out["tp"] = mesh_tp_phase([labelmap, toy_labelmap(3, 3)])
     out["nccl"] = mesh_nccl_phase(labelmap)
     out["dryrun"] = mesh_dryrun_phase()
+    out["spatial"] = mesh_spatial_phase(labelmap, out["slice"]["one_process"])
     out["seconds"] = time.perf_counter() - t
     log(f"[mesh] phase took {out['seconds']:.1f} s")
     paths = {}
@@ -3772,12 +3970,18 @@ def mesh_phase(labelmap):
         for rank, c in enumerate(counts):
             paths[f"mesh_k3_tiles_{split}_rank{rank}"] = c
     paths["mesh_nccl_rank0"] = out["nccl"]["counts"]
+    for rank, r in enumerate(out["spatial"]["ranks"]):
+        paths[f"mesh_spatial_1x2_rank{rank}"] = r["counts"]
+    for rank, c in enumerate(out["spatial"]["f32"]["counts"]):
+        paths[f"mesh_spatial_f32_1x2_rank{rank}"] = c
+    for rank, c in enumerate(out["spatial"]["cli"]["counts"]):
+        paths[f"mesh_spatial_cli_1x2_rank{rank}"] = c
     return out, paths
 
 
 def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                 eval_prof, hyp_result, label_results, cli_paths, r18_rows,
-                zoo_rows):
+                zoo_rows, mesh_rows):
     """One record per kernel. BN kernels: one classifier step's 53
     launches at its shapes; pairwise_order: one joint eval's calls at its
     shapes through the route the wrapper takes (exact_d at D = 10), with
@@ -3795,7 +3999,9 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
     VGG11BN@448's 8 (batch 64: `vgg11_bn_448_b64`), K1 at the ghost
     route's prefixes of ResNet-50@448 (8 rows: `ghost_prefix_r50_448_rows8`)
     and K1's bf16-rounding variant at ResNet-50@448's 12 shapes with its
-    launches by path (`bf16_square_variant`); all their errors count in
+    launches by path (`bf16_square_variant`), and the sums over the shapes
+    of each mesh table of phase 2 (`mesh_shapes`, the spatial ones among
+    them, each image's H halved); all their errors count in
     max_abs_err."""
     paths = {"classifier": slice_result["launches"],
              "joint_order": joint_result["launches"],
@@ -3825,7 +4031,9 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                          "bound_ms")}
         zoo_err = [r[name]["max_abs_err"] for r in vgg] + (
             [r["max_abs_err"] for r in ghost + bf16sq]
-            if name == "bn_stats" else [])
+            if name == "bn_stats" else []) + [
+            r[name]["max_abs_err"] for rows in mesh_rows.values()
+            for r in rows]
         kernels.append({
             "name": name, "route": "triton", "source": KERNEL_SRC[name],
             "replaces": TPU_KERNELS[name],
@@ -3849,6 +4057,13 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                  **{k: r[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")}}
                 for r in vgg],
+            "mesh_shapes": {
+                table: {**{k: sum(r[name][k] * r["layers"] for r in rows)
+                           for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms")},
+                        "max_abs_err": max(r[name]["max_abs_err"]
+                                           for r in rows)}
+                for table, rows in mesh_rows.items()},
         })
         if name == "bn_stats":
             kernels[-1]["ghost_prefix_r50_448_rows8"] = {
@@ -3998,7 +4213,8 @@ def main(argv=None):
     finally:
         shutil.rmtree(EXPERIMENTS, ignore_errors=True)
     kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof,
-                          hyp, label, cli_paths, r18_rows, zoo_rows)
+                          hyp, label, cli_paths, r18_rows, zoo_rows,
+                          mesh_rows)
 
     details = {"nvidia_smi": smi, "torch": torch.__version__,
                "cuda": torch.version.cuda, "slice": result,

@@ -10,16 +10,18 @@ variant for bf16). ``--loader native`` decodes JPEG files in the C++
 loader of ``data/native_loader.py`` (the JAX CLI takes it by itself for
 .jpg files). Under ``torchrun`` the run shards over every rank: the
 batch over 'data' and, with ``--n_model N``, the head over N ranks of each
-data shard (``train/runner.py``'s ``mesh="auto"``).
-``--spatial_partition`` is not ported and raises (ROADMAP.md queue A item
-28).
+data shard (``train/runner.py``'s ``mesh="auto"``); with
+``--spatial_partition`` also the images' H over those N ranks, with halo
+exchanges (``parallel/spatial.py``). Without ranks to shard over the flag
+changes nothing, as in the JAX CLI.
 
     python -m learning_embeddings_tpu_torch.cli.ethec_experiments \\
         --data_dir <splits> --image_dir <images> --experiment_dir <dir> \\
         --experiment_name e --n_epochs 2 --model resnet50 \\
         --loss multi_level --set_mode train [--device cpu]
     torchrun --nproc_per_node 4 -m \\
-        learning_embeddings_tpu_torch.cli.ethec_experiments ... --n_model 2
+        learning_embeddings_tpu_torch.cli.ethec_experiments ... --n_model 2 \\
+        [--spatial_partition]
 """
 
 from __future__ import annotations
@@ -77,9 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_model", type=int, default=1,
                         help="Mesh 'model' axis width: ranks of each data "
                              "shard that hold the head's tensor-parallel "
-                             "blocks (under torchrun).")
+                             "blocks and, with --spatial_partition, the "
+                             "images' H blocks (under torchrun).")
     parser.add_argument("--spatial_partition", action="store_true",
-                        help="Shard the image H axis (not ported: raises).")
+                        help="Shard the image H axis over the 'model' axis "
+                             "(halo exchanges around each conv and pool).")
     parser.add_argument("--grad_accum", type=int, default=1,
                         help="Accumulate gradients over N micro-batches "
                              "per optimizer step (effective batch = "
@@ -102,10 +106,6 @@ def main(args=None):
     from ..train.classifier import ClassifierConfig
 
     args = build_parser().parse_args(args)
-    if args.spatial_partition:
-        raise NotImplementedError(
-            "--spatial_partition is not ported yet (ROADMAP.md queue A "
-            "item 28, slice 11: spatial partitioning)")
     labelmap, datasets, _ = load_ethec_data(args.data_dir, args.debug)
 
     class_weights = None
@@ -131,6 +131,7 @@ def main(args=None):
         bn_stats_rows=args.bn_stats_rows,
         bn_stats_dtype=args.bn_stats_dtype,
         grad_accum=args.grad_accum,
+        spatial_partition=args.spatial_partition,
         device=args.device,
     )
     evaluator = args.evaluator if args.loss == "multi_label" else "MLEVAL"

@@ -6,7 +6,8 @@ pipeline (``pipeline.py``, with the C++ JPEG loader of
 (``workloads.py``) and the offline tools: image crops (``preprocess.py``)
 and the database build (``build_db.py``)."""
 
-from .pipeline import ImagePipeline
+from .pipeline import (ImagePipeline, augment_eval, augment_train,
+                       decode_image)
 from .records import (
     EncodedDataset,
     encode_records,
@@ -36,8 +37,11 @@ __all__ = [
     "EncodedDataset",
     "ImagePipeline",
     "WeightedResampler",
+    "augment_eval",
+    "augment_train",
     "cifar10_labelmap",
     "cifar100_labelmap",
+    "decode_image",
     "encode_records",
     "filter_to_labelmap",
     "fmnist_labelmap",

@@ -29,7 +29,7 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -41,7 +41,8 @@ _PREFETCH_END = object()
 #: decode paths of ``ImagePipeline``: cv2/PIL in Python threads, or the
 #: C++ JPEG loader
 LOADERS = ("python", "native")
-#: batches an ``ImagePipeline`` epoch holds ready ahead of its consumer
+#: batches an ``ImagePipeline`` epoch holds ready ahead of its consumer,
+#: by default (``prefetch=``)
 PIPELINE_PREFETCH = 4
 
 
@@ -184,21 +185,33 @@ class ImagePipeline:
     resize, crop, flip and scale in one C++ pass. Its uint8 batches round
     once more than its float32 ones (the fused pass rounds only the
     output), where the Python path's are bit-identical. It takes files
-    only, with the 'ethec' transform."""
+    only, with the 'ethec' transform and no `normalize`.
+
+    `prefetch` batches wait ready ahead of the consumer. `normalize` =
+    (mean, std), per channel: float32 batches become (x/255 − mean)/std,
+    as in the JAX package; uint8 output cannot take it."""
 
     def __init__(self, dataset, labelmap, image_root: str, *,
                  image_size: int = 448, batch_size: int = 64,
                  train: bool = True, grayscale: bool = False,
-                 num_workers: int = 8, augment: str = "ethec",
-                 out_dtype: str = "float32", loader: str = "python"):
+                 num_workers: int = 8, prefetch: int = PIPELINE_PREFETCH,
+                 normalize: Optional[Tuple[Sequence[float],
+                                           Sequence[float]]] = None,
+                 augment: str = "ethec", out_dtype: str = "float32",
+                 loader: str = "python"):
         if augment not in ("ethec", "rrc"):
             raise ValueError(f"unknown augment {augment!r}")
         if loader not in LOADERS:
             raise ValueError(f"unknown loader {loader!r}; expected {LOADERS}")
+        if out_dtype == "uint8" and normalize is not None:
+            raise ValueError("uint8 output requires normalize=None "
+                             "(mean/std would need float pixels)")
         if loader == "native":
-            if hasattr(dataset, "images") or augment != "ethec":
+            if (hasattr(dataset, "images") or augment != "ethec"
+                    or normalize is not None):
                 raise ValueError("loader='native' reads image files with "
-                                 "the 'ethec' transform only")
+                                 "the 'ethec' transform and no normalize "
+                                 "only")
             bad = [p for p in dataset.image_paths
                    if not p.lower().endswith((".jpg", ".jpeg"))]
             if bad:
@@ -212,6 +225,8 @@ class ImagePipeline:
         self.train = train
         self.grayscale = grayscale
         self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.normalize = normalize
         self.augment = augment
         self.out_dtype = out_dtype
         self.loader = loader
@@ -239,7 +254,12 @@ class ImagePipeline:
         if self.out_dtype == "uint8":
             return img if img.dtype == np.uint8 else \
                 np.clip(np.round(img), 0, 255).astype(np.uint8)
-        return img.astype(np.float32) / 255.0
+        out = img.astype(np.float32) / 255.0
+        if self.normalize is not None:
+            mean, std = self.normalize
+            out = ((out - np.asarray(mean, np.float32))
+                   / np.asarray(std, np.float32))
+        return out
 
     def _load_native(self, idx: np.ndarray, seed: int) -> np.ndarray:
         from . import native_loader
@@ -262,7 +282,7 @@ class ImagePipeline:
         drops the ragged tail, so every train batch has the full size."""
         bs = self.bs
         n_batches = len(order) // bs if self.train else -(-len(order) // bs)
-        out_q: "queue.Queue" = queue.Queue(maxsize=PIPELINE_PREFETCH)
+        out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def produce():

@@ -7,7 +7,8 @@ ethec_labelmap()  — the ETHEC merged taxonomy (6/21/135/561) when the
                     ETHEC split is present, else the shipped Butterfly200
                     taxonomy (5/23/116/200).
 dryrun_multichip(n) — one sharded step of every trainer on an n-rank mesh
-                    of gloo processes, then the meshed evals (the twin of
+                    of gloo processes, spatial partitioning among them,
+                    then the meshed evals (the twin of
                     ``__graft_entry__.py:127-337``); prints
                     ``DRYRUN_SUMMARY {...}`` last.
 
@@ -79,15 +80,17 @@ def dryrun_multichip(n_devices: int, device="cuda",
     """One sharded step of every trainer on an `n_devices`-rank mesh, tiny
     shapes, in the order of the JAX package's ``dryrun_multichip``: the
     classifier step on (n/2, 2) when n ≥ 4 and even, else (n, 1); two
-    grad_accum=2 micro-steps on that mesh; an fc7 joint epoch; the
-    ``--use_CNN`` step, cold and then with the tower warm-started from a
-    classifier; the meshed evals (ragged rows, sharded hit@1 and
-    reconstruction F1); a label-only epoch. The ranks are gloo processes
-    on the CPU or sharing the card(s) (``parallel/launch.py``); any rank's
-    failure raises; `threads` caps each rank's CPU threads (by default the
-    host's cores shared out). JAX's spatial-partitioning stage is not ported
-    (ROADMAP.md queue A item 28), and the summary says so. Prints each
-    stage's line and ``DRYRUN_SUMMARY {...}`` last; returns the summary."""
+    grad_accum=2 micro-steps on that mesh, and (with a 'model' axis) the
+    same with the images' H sharded over it (JAX's spatial stage,
+    ``__graft_entry__.py:209-225``: its loss and halo exchanges a rank in
+    the summary); an fc7 joint epoch; the ``--use_CNN`` step, cold and
+    then with the tower warm-started from a classifier; the meshed evals
+    (ragged rows, sharded hit@1 and reconstruction F1); a label-only
+    epoch. The ranks are gloo processes on the CPU or sharing the card(s)
+    (``parallel/launch.py``); any rank's failure raises; `threads` caps
+    each rank's CPU threads (by default the host's cores shared out).
+    Prints each stage's line and ``DRYRUN_SUMMARY {...}`` last; returns
+    the summary."""
     from .parallel.launch import run_ranks
 
     if torch.device(device).type == "cuda":
@@ -113,6 +116,7 @@ def dryrun_multichip(n_devices: int, device="cuda",
 def _dryrun_rank(device) -> dict:
     from .hierarchy import label_graph_from_paths, split_edges
     from .losses.joint_sampling import build_joint_graph
+    from .parallel import mesh as pmesh
     from .parallel.mesh import make_mesh
     from .train.classifier import ClassifierConfig, ClassifierTrainer
     from .train.embedding import EmbeddingTrainer, EmbeddingTrainerConfig
@@ -155,11 +159,27 @@ def _dryrun_rank(device) -> dict:
     ga.state, ga_loss = ga.train_step(ga.state, *ga_batch)
     ga.state, ga_loss = ga.train_step(ga.state, *ga_batch)
     summary["grad_accum"] = round(float(ga_loss), 4)
-    summary["spatial_partition"] = ("not ported: ROADMAP.md queue A item "
-                                    "28 (slice 11)")
-    say(f"grad-accum loss={float(ga_loss):.4f} ok; spatial partitioning "
-        f"not ported")
+    say(f"grad-accum loss={float(ga_loss):.4f} ok")
     del ga, ga_batch
+
+    # spatial partitioning + gradient accumulation on the same mesh: the
+    # images' H over 'model', halo exchanges around each conv and pool
+    if n_model > 1:
+        sp = ClassifierTrainer(labelmap, ClassifierConfig(
+            backbone="resnet18", criterion="multi_level_ce", lr=1e-3,
+            image_size=64, batch_size=2 * n, seed=0, spatial_partition=True,
+            grad_accum=2, device=device), mesh=mesh)
+        sp_batch = sp.put_batch(images, ll, multihot)
+        before = dict(pmesh.COLLECTIVES)
+        sp.state, sp_loss = sp.train_step(sp.state, *sp_batch)
+        sp.state, sp_loss = sp.train_step(sp.state, *sp_batch)
+        summary["spatial_grad_accum"] = round(float(sp_loss), 4)
+        summary["spatial_halos"] = {
+            k: pmesh.COLLECTIVES[k] - before.get(k, 0)
+            for k in ("halo", "halo_grad")}
+        say(f"spatial-partition + grad-accum loss={float(sp_loss):.4f} ok "
+            f"(halo exchanges a rank {summary['spatial_halos']})")
+        del sp, sp_batch
 
     # the fc7 joint epoch: edge batches over 'data', FeatNet replicated
     leaves = rng.randint(0, labelmap.levels[-1], 4 * n)

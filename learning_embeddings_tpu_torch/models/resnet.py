@@ -31,6 +31,17 @@ models/resnet.py`` (ResNet-18 to -152, ``AlexNet``, ``VGG11BN``).
   the recompute leaves the BatchNorm running statistics alone (see
   ``ops/bn.py``). AlexNet and VGG11BN take `remat` and `stem` for a
   uniform signature and ignore them, as the JAX package's do.
+* Spatial partitioning: a trunk whose ``spatial`` is a
+  ``parallel.spatial.SpatialShards`` takes blocks of H (this rank's rows of
+  every image over the mesh's 'model' axis) and runs as a sequence of
+  units (``spatial_units``: the stem, the pool and each residual block;
+  each conv and pool of AlexNet and VGG11BN), each H-sharded with halo
+  exchanges while its windows fit, then gathered whole and replicated
+  (``parallel.spatial.plan``). Each unit's BatchNorms reduce over every
+  rank while it is sharded and over 'data' once it is replicated. Under
+  remat a recomputed block runs its halo exchanges again, in the same
+  order on every rank. With ``spatial`` None (the default) every op is
+  the one-device op.
 """
 
 from __future__ import annotations
@@ -44,7 +55,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.bn import BatchNormBase, make_norm
+from ..ops.bn import (BatchNormBase, GhostBatchNorm, make_norm,
+                      set_batch_norm_group)
+from ..parallel.spatial import Window, conv_window, plan
 
 __all__ = [
     "BasicBlock",
@@ -52,6 +65,7 @@ __all__ = [
     "ResNet",
     "AlexNet",
     "VGG11BN",
+    "GhostBatchNorm",
     "resnet18",
     "resnet34",
     "resnet50",
@@ -63,21 +77,100 @@ __all__ = [
     "init_params_",
     "space_to_depth",
     "s2d_stem_kernel",
+    "spatial_halo_counts",
+    "spatial_parameters",
 ]
 
 STEMS = ("conv7", "s2d")
 
 
 class Conv2d(nn.Conv2d):
-    """Conv whose f32 weight (and bias) is cast to the input's dtype."""
+    """Conv whose f32 weight (and bias) is cast to the input's dtype; with
+    `sp` (a ``SpatialShards``) x is this rank's block of H and the conv
+    takes its halo (`pad_h`: an H padding other than ``padding[0]`` on
+    both sides)."""
 
     def __init__(self, cin, cout, kernel, stride=1, padding=0, bias=False):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
                          bias=bias)
 
-    def forward(self, x):
+    def forward(self, x, sp=None, pad_h=None):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        weight = self.weight.to(x.dtype)
+        if sp is None:
+            return self._conv_forward(x, weight, bias)
+        return sp.conv2d(x, weight, bias, self.stride, self.padding, pad_h)
+
+
+def _max_pool(x, kernel, stride, padding, sp):
+    if sp is None:
+        return F.max_pool2d(x, kernel, stride, padding)
+    return sp.max_pool2d(x, kernel, stride, padding)
+
+
+def _shortcut_windows(block):
+    return ([] if block.downsample is None
+            else [conv_window(block.downsample[0])])
+
+
+def _run_units(trunk, x, units):
+    """`units` ((modules, fn(x, sp), chains of H windows) each) in order
+    on x, then the global mean pool in f32. With ``trunk.spatial``: each
+    unit H-sharded while the plan says so, its BatchNorms reducing over
+    every rank; from the first unit that is not, x gathered whole and the
+    rest replicated, reducing over 'data'."""
+    sp = trunk.spatial
+    if sp is None:
+        for _, fn, _ in units:
+            x = fn(x, None)
+        return x.mean(dim=(2, 3)).float()
+    sharded = True
+    for (modules, fn, _), on in zip(units, plan(
+            [chains for _, _, chains in units], x.shape[2], sp.parts)):
+        if sharded and not on:
+            x = sp.gather(x)
+            sharded = False
+        for m in modules:
+            if on:
+                set_batch_norm_group(m, sp.sharded_stats_group, sp.parts)
+            else:
+                set_batch_norm_group(m, sp.replicated_stats_group)
+        x = fn(x, sp if on else None)
+    return sp.mean(x) if sharded else x.mean(dim=(2, 3)).float()
+
+
+def _sharded_units(trunk, height: int, parts: int):
+    """(index, unit) of the units that run H-sharded on images of
+    `height` rows over `parts` model ranks."""
+    units = trunk.spatial_units()
+    on = plan([chains for _, _, chains in units], height // parts, parts)
+    return [(i, u) for i, (u, sharded) in enumerate(zip(units, on))
+            if sharded]
+
+
+def spatial_parameters(trunk, height: int, parts: int) -> list:
+    """The parameters of the units of `trunk` that run H-sharded on images
+    of `height` rows over `parts` model ranks: each model rank computes
+    their gradient from its rows only, so it is summed over 'model'."""
+    return [p for _, (modules, _, _) in _sharded_units(trunk, height, parts)
+            for m in modules for p in m.parameters()]
+
+
+def spatial_halo_counts(trunk, height: int, parts: int,
+                        remat: bool = False) -> dict:
+    """The halo exchanges one train step of `trunk` makes on each rank for
+    images of `height` rows over `parts` model ranks: "halo" in the
+    forward pass (again for each recomputed block under `remat`) and
+    "halo_grad" in the backward pass (none for the first unit, whose input
+    is the image). A window with no halo rows exchanges nothing."""
+    fwd = bwd = 0
+    for i, (modules, _, chains) in _sharded_units(trunk, height, parts):
+        n = sum(w.halo != (0, 0) for chain in chains for w in chain)
+        block = any(isinstance(m, (BasicBlock, Bottleneck))
+                    for m in modules)
+        fwd += n * (2 if remat and block else 1)
+        bwd += n if i else 0
+    return {"halo": fwd, "halo_grad": bwd}
 
 
 class BasicBlock(nn.Module):
@@ -94,11 +187,17 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(
                 Conv2d(cin, filters, 1, stride), norm(filters))
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x, sp=None):
+        y = F.relu(self.bn1(self.conv1(x, sp)))
+        y = self.bn2(self.conv2(y, sp))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
+
+    def windows(self):
+        """The chains of H windows from the block's input: the main path
+        and the shortcut."""
+        return [[conv_window(self.conv1), conv_window(self.conv2)],
+                _shortcut_windows(self)]
 
 
 class Bottleneck(nn.Module):
@@ -118,12 +217,18 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(
                 Conv2d(cin, cout, 1, stride), norm(cout))
 
-    def forward(self, x):
+    def forward(self, x, sp=None):
         y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = F.relu(self.bn2(self.conv2(y, sp)))
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
+
+    def windows(self):
+        """The chains of H windows from the block's input: the main path
+        and the shortcut."""
+        return [[conv_window(self.conv1), conv_window(self.conv2),
+                 conv_window(self.conv3)], _shortcut_windows(self)]
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -189,6 +294,8 @@ class ResNet(nn.Module):
         norm = make_norm(bn_impl, bn_stats_rows, bn_stats_dtype, dtype)
         self.stage_sizes = tuple(stage_sizes)
         self.dtype = dtype
+        #: a ``parallel.spatial.SpatialShards`` to shard H over, or None
+        self.spatial = None
         self.remat = remat
         self.stem = stem
         self.conv1 = (Conv2d(4 * in_channels, 64, 4) if stem == "s2d"
@@ -204,23 +311,45 @@ class ResNet(nn.Module):
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.feature_dim = cin
 
-    def forward(self, x):
-        x = x.to(self.dtype)
+    def _stem_forward(self, x, sp):
         if self.stem == "s2d":
-            x = F.pad(space_to_depth(x), (2, 1, 2, 1))
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
-        remat = self.remat and self.training and torch.is_grad_enabled()
+            x = space_to_depth(x)
+            if sp is None:
+                x = self.conv1(F.pad(x, (2, 1, 2, 1)))
+            else:   # W padded here, H through the halo
+                x = self.conv1(F.pad(x, (2, 1)), sp, pad_h=(2, 1))
+        else:
+            x = self.conv1(x, sp)
+        return F.relu(self.bn1(x))
+
+    def _block_forward(self, blk):
+        def run(x, sp):
+            if self.remat and self.training and torch.is_grad_enabled():
+                return checkpoint(
+                    blk, x, sp, use_reentrant=False,
+                    preserve_rng_state=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        _recomputing(blk)))
+            return blk(x, sp)
+        return run
+
+    def spatial_units(self):
+        """(modules, fn(x, sp), chains of H windows) of the stem, the pool
+        and each block (``parallel/spatial.py``)."""
+        stem = ([Window(2, 2, 0, 0), Window(4, 1, 2, 1)]
+                if self.stem == "s2d" else [conv_window(self.conv1)])
+        units = [((self.conv1, self.bn1), self._stem_forward, [stem]),
+                 ((), lambda x, sp: _max_pool(x, 3, 2, 1, sp),
+                  [[Window(3, 2, 1, 1)]])]
         for i in range(len(self.stage_sizes)):
             for blk in getattr(self, f"layer{i + 1}"):
-                if remat:
-                    x = checkpoint(
-                        blk, x, use_reentrant=False, preserve_rng_state=False,
-                        context_fn=lambda blk=blk: (contextlib.nullcontext(),
-                                                    _recomputing(blk)))
-                else:
-                    x = blk(x)
-        return x.mean(dim=(2, 3)).float()       # global average pool
+                units.append(((blk,), self._block_forward(blk),
+                              blk.windows()))
+        return units
+
+    def forward(self, x):
+        # ends in the global average pool
+        return _run_units(self, x.to(self.dtype), self.spatial_units())
 
 
 class AlexNet(nn.Module):
@@ -240,6 +369,7 @@ class AlexNet(nn.Module):
                  bn_stats_rows: int = 0, bn_stats_dtype: str = "float32"):
         super().__init__()
         self.dtype = dtype
+        self.spatial = None
         cin = in_channels
         for k, (filters, kernel, stride, _) in enumerate(self.LAYERS):
             self.add_module(f"conv{k}", Conv2d(cin, filters, kernel, stride,
@@ -248,13 +378,21 @@ class AlexNet(nn.Module):
         self.dense0 = nn.Linear(cin, 4096)
         self.dense1 = nn.Linear(4096, 4096)
 
-    def forward(self, x):
-        x = x.to(self.dtype)
+    def spatial_units(self):
+        """(modules, fn(x, sp), chains of H windows) of each conv and pool
+        (``parallel/spatial.py``); no BatchNorm."""
+        units = []
         for k, (_, _, _, pool) in enumerate(self.LAYERS):
-            x = F.relu(getattr(self, f"conv{k}")(x))
+            conv = getattr(self, f"conv{k}")
+            units.append(((conv,), lambda x, sp, conv=conv:
+                          F.relu(conv(x, sp)), [[conv_window(conv)]]))
             if pool:
-                x = F.max_pool2d(x, 3, 2)
-        x = x.mean(dim=(2, 3)).float()
+                units.append(((), lambda x, sp: _max_pool(x, 3, 2, 0, sp),
+                              [[Window(3, 2, 0, 0)]]))
+        return units
+
+    def forward(self, x):
+        x = _run_units(self, x.to(self.dtype), self.spatial_units())
         return F.relu(self.dense1(F.relu(self.dense0(x))))
 
 
@@ -274,6 +412,7 @@ class VGG11BN(nn.Module):
         super().__init__()
         norm = make_norm(bn_impl, bn_stats_rows, bn_stats_dtype, dtype)
         self.dtype = dtype
+        self.spatial = None
         cin, k = in_channels, 0
         for v in self.CFG:
             if v != "M":
@@ -281,17 +420,23 @@ class VGG11BN(nn.Module):
                 self.add_module(f"bn{k}", norm(v))
                 cin, k = v, k + 1
 
-    def forward(self, x):
-        x = x.to(self.dtype)
-        k = 0
+    def spatial_units(self):
+        """(modules, fn(x, sp), chains of H windows) of each conv (with its
+        BatchNorm) and pool (``parallel/spatial.py``)."""
+        units, k = [], 0
         for v in self.CFG:
             if v == "M":
-                x = F.max_pool2d(x, 2, 2)
+                units.append(((), lambda x, sp: _max_pool(x, 2, 2, 0, sp),
+                              [[Window(2, 2, 0, 0)]]))
             else:
-                x = F.relu(getattr(self, f"bn{k}")(
-                    getattr(self, f"conv{k}")(x)))
+                conv, bn = getattr(self, f"conv{k}"), getattr(self, f"bn{k}")
+                units.append(((conv, bn), lambda x, sp, conv=conv, bn=bn:
+                              F.relu(bn(conv(x, sp))), [[conv_window(conv)]]))
                 k += 1
-        return x.mean(dim=(2, 3)).float()
+        return units
+
+    def forward(self, x):
+        return _run_units(self, x.to(self.dtype), self.spatial_units())
 
 
 @torch.no_grad()

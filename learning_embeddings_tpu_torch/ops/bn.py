@@ -44,19 +44,25 @@ each activation as a row-major (R = N·H·W, C) matrix, which is a free view
 of a channels_last tensor. Any other layout costs an explicit copy, counted
 in ``CHANNELS_LAST_COPIES``.
 
-On a mesh (``group``: the 'data' process group of
-``parallel/mesh.py``; None is one device) the statistics are those of the
-global batch, as GSPMD's all-reduce makes them in the JAX package: each
-rank runs K1 / K2 on its own rows, the f32 (2, C) sums are all-reduced
-over the group (one ``all_reduce`` per BN layer and pass, counted as
-"bn_stats" / "bn_corr" in ``parallel.mesh.COLLECTIVES``), and the
-epilogue runs on the global sums, so the running statistics are equal
-on every rank. The gradient of the scale and bias is this rank's share
-(the trainer's gradient all-reduce adds the shares); dx takes the global
-sums. Ghost statistics cover the first rows of the *global* batch: a
-rank whose rows lie past the prefix adds zeros and launches no K1. bf16
-statistics round the all-reduced means. The flax route takes the
-library's synchronised statistics (``torch.batch_norm_stats``,
+On a mesh (``group``: a process group of ``parallel/mesh.py``; None is
+one device) the statistics are those of the global batch, as GSPMD's
+all-reduce makes them in the JAX package: each rank runs K1 / K2 on its
+own rows, the f32 (2, C) sums are all-reduced over the group (one
+``all_reduce`` per BN layer and pass, counted as "bn_stats" / "bn_corr"
+in ``parallel.mesh.COLLECTIVES``), and the epilogue runs on the global
+sums, so the running statistics are equal on every rank. The gradient of
+the scale and bias is this rank's share (the trainer's gradient
+all-reduce adds the shares); dx takes the global sums. Each layer has its
+own group (``set_batch_norm_group``): the 'data' group where each rank
+holds whole images, every rank (``Mesh.world_group``) for a layer whose
+images are also split along H over 'model' (spatial partitioning,
+``parallel/spatial.py``), where `parts` ranks — the model group — hold
+the pieces of the same images. Ghost statistics cover the first images
+of the *global* batch: a rank whose images lie past the prefix adds
+zeros and launches no K1; its images are found by its data index, which
+is its rank in the group divided by `parts`. bf16 statistics round the
+all-reduced means. The flax route takes the library's synchronised
+statistics (``torch.batch_norm_stats``,
 ``torch.batch_norm_gather_stats_with_counts``, the kernels
 ``nn.SyncBatchNorm`` runs) on the card, and their plain equivalent on the
 CPU, where those operators do not exist. Every shard has the same number
@@ -210,20 +216,22 @@ def batch_norm_train(x, scale, bias, eps: float = 1e-5, group=None):
 class _GhostBatchNormTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, stats_rows, round_bf16, group):
+    def forward(ctx, x, scale, bias, eps, stats_rows, round_bf16, group,
+                parts):
         x = _channel_minor(x)
         n_img = x.shape[0]
-        # the prefix of the global batch; this rank holds images
-        # [k·n_img, (k + 1)·n_img) of it
-        total = n_img * group_size(group)
+        # the prefix of the global batch; this rank holds (its `parts`-th
+        # piece of) images [k·n_img, (k + 1)·n_img) of it, k its data index
+        total = n_img * (group_size(group) // parts)
         prefix = min(stats_rows, total) if stats_rows > 0 else total
-        rows = min(max(prefix - group_rank(group) * n_img, 0), n_img)
+        k = group_rank(group) // parts
+        rows = min(max(prefix - k * n_img, 0), n_img)
         x2 = _rows(x)
         per_img = x2.shape[0] // n_img
         xs2 = x2[:rows * per_img]                   # the rows' prefix view
         if round_bf16:
             xs2 = xs2.to(torch.bfloat16)
-        n = prefix * per_img
+        n = prefix * per_img * parts
         if rows:
             s, q = _stats(xs2, True) if round_bf16 else _stats(xs2)
         else:   # no row of this rank is in the prefix: no launch
@@ -268,23 +276,25 @@ class _GhostBatchNormTrain(torch.autograd.Function):
         # the scale's and bias's gradients from this rank's rows
         dscale = (sdyx_own - mean * sdy_own) * inv
         return (dx.to(x.dtype), dscale.to(scale.dtype),
-                sdy_own.to(scale.dtype), None, None, None, None)
+                sdy_own.to(scale.dtype), None, None, None, None, None, None)
 
 
 def ghost_batch_norm_train(x, scale, bias, eps: float = 1e-5,
                            stats_rows: int = 8,
                            stats_dtype: torch.dtype = torch.float32,
-                           group=None):
+                           group=None, parts: int = 1):
     """``batch_norm_train`` with the statistics of the first `stats_rows`
     batch rows (all for ≤ 0) of the global batch (over the ranks of
-    `group`) in `stats_dtype` (float32 or bfloat16): the JAX package's
+    `group`, `parts` of which hold pieces of the same images) in
+    `stats_dtype` (float32 or bfloat16): the JAX package's
     ``GhostBatchNorm`` in train mode. The normalisation covers every row.
     Returns (y, mean, var)."""
     if stats_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"stats_dtype must be float32 or bfloat16, got "
                          f"{stats_dtype}")
     return _GhostBatchNormTrain.apply(x, scale, bias, eps, int(stats_rows),
-                                      stats_dtype == torch.bfloat16, group)
+                                      stats_dtype == torch.bfloat16, group,
+                                      int(parts))
 
 
 def _own_stats(x, eps: float):
@@ -402,7 +412,10 @@ class BatchNormBase(nn.Module):
         #: set while a rematerialised block recomputes its forward: the
         #: running statistics were updated by the first forward already
         self.recomputing = False
+        #: the ranks the statistics reduce over, and how many of them
+        #: hold pieces of the same images (``set_batch_norm_group``)
         self.group = None
+        self.parts = 1
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -453,7 +466,7 @@ class GhostBatchNorm(BatchNormBase):
     def _train(self, x):
         return ghost_batch_norm_train(x, self.weight, self.bias, self.eps,
                                       self.stats_rows, self.stats_dtype,
-                                      self.group)
+                                      self.group, self.parts)
 
 
 class FlaxBatchNorm(BatchNormBase):
@@ -466,12 +479,15 @@ class FlaxBatchNorm(BatchNormBase):
                                          self.group)
 
 
-def set_batch_norm_group(module: nn.Module, group) -> None:
-    """Every train-mode BatchNorm of `module` reduces its statistics over
-    `group` (a mesh's 'data' group; None: this device alone)."""
+def set_batch_norm_group(module: nn.Module, group, parts: int = 1) -> None:
+    """Every train-mode BatchNorm of `module` (a whole model, or one layer
+    of a trunk) reduces its statistics over `group`: a mesh's 'data'
+    group, or its ``world_group`` for a layer H-sharded over 'model' with
+    `parts` = the model axis's size (the ranks that hold pieces of the
+    same images); None: this device alone."""
     for m in module.modules():
         if isinstance(m, BatchNormBase):
-            m.group = group
+            m.group, m.parts = group, int(parts)
 
 
 def make_norm(bn_impl: str = "pallas", bn_stats_rows: int = 0,

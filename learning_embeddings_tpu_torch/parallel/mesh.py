@@ -52,7 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Mesh", "make_mesh", "mesh_device", "init_from_env",
-           "default_backend", "shard_rows", "param_shardings",
+           "default_backend", "shard_rows", "shard_height",
+           "param_shardings",
            "ParamSharding", "ShardedLinear", "shard_linear_layers_",
            "all_reduce_", "all_gather_rows", "gather_rows", "copy_to_group",
            "reduce_from_group", "all_reduce_grads_", "barrier",
@@ -83,19 +84,23 @@ class Mesh:
     ``data_index`` / ``model_index`` are this rank's coordinates;
     ``data_group`` holds the ranks that share this rank's model index
     (batch shards, reduced over for BatchNorm statistics and gradients),
-    ``model_group`` those that share its data index (tensor-parallel
-    shards); either is None when its axis has one rank."""
+    ``model_group`` those that share its data index (tensor-parallel and
+    spatial shards), ``world_group`` every rank of the mesh (the
+    BatchNorm statistics of a layer sharded over both axes); each is None
+    when it holds one rank."""
 
     axis_names = ("data", "model")
 
     def __init__(self, n_data: int, n_model: int, device: torch.device,
-                 rank: int = 0, data_group=None, model_group=None):
+                 rank: int = 0, data_group=None, model_group=None,
+                 world_group=None):
         self.shape = {"data": int(n_data), "model": int(n_model)}
         self.rank = int(rank)
         self.data_index, self.model_index = divmod(self.rank, int(n_model))
         self.device = torch.device(device)
         self.data_group = data_group
         self.model_group = model_group
+        self.world_group = world_group
 
     @property
     def n_data(self) -> int:
@@ -170,9 +175,10 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     grid = np.arange(use).reshape(n_data, n_model)
     data_groups = [_new_group(grid[:, m]) for m in range(n_model)]
     model_groups = [_new_group(grid[d]) for d in range(n_data)]
+    world_group = _new_group(grid.reshape(-1))
     d, m = divmod(rank, n_model)
     return Mesh(n_data, n_model, device, rank, data_groups[m],
-                model_groups[d])
+                model_groups[d], world_group)
 
 
 def default_backend(device, n_local_ranks: int) -> str:
@@ -374,6 +380,21 @@ def shard_rows(x, mesh: Optional[Mesh], what: str = "batch"):
                          f"mesh's {mesh.n_data} 'data' shards")
     b = n // mesh.n_data
     return x[mesh.data_index * b:(mesh.data_index + 1) * b]
+
+
+def shard_height(x, mesh: Optional[Mesh]):
+    """This rank's block of the H axis (dim 1) of an NHWC image batch `x`
+    (a tensor or array) over the mesh's 'model' axis: the H half of JAX's
+    ``P("data", "model")``. Raises when the rows do not divide over the
+    model shards."""
+    if mesh is None or mesh.n_model == 1:
+        return x
+    n = x.shape[1]
+    if n % mesh.n_model:
+        raise ValueError(f"an image height of {n} rows must divide evenly "
+                         f"over the mesh's {mesh.n_model} 'model' shards")
+    h = n // mesh.n_model
+    return x[:, mesh.model_index * h:(mesh.model_index + 1) * h]
 
 
 def check_batch_divides(batch_size: int, mesh: Optional[Mesh]) -> None:

@@ -17,6 +17,7 @@ from . import mesh as pmesh
 from .mesh import make_mesh
 
 __all__ = ["classifier_run", "classifier_steps", "classifier_cases",
+           "spatial_ops",
            "pairwise_run", "pairwise_tiles", "eval_metrics_run",
            "eval_metrics", "embedding_run", "embedding_epochs", "fc7_run",
            "fc7_epochs", "joint_cnn_run", "joint_cnn_steps",
@@ -25,24 +26,27 @@ __all__ = ["classifier_run", "classifier_steps", "classifier_cases",
 
 
 def counts() -> Dict[str, int]:
-    """This process's kernel launches and collectives so far."""
-    from ..ops import bn_triton
+    """This process's kernel launches, BatchNorm channels_last copies and
+    collectives so far."""
+    from ..ops import bn, bn_triton
     from ..ops import pairwise_order as k3
 
     return {"bn_stats": bn_triton.STATS_LAUNCHES,
             "bn_corr": bn_triton.CORR_LAUNCHES,
             "pairwise_order": k3.LAUNCHES,
             "pairwise_order_exact_d": k3.EXACT_D_LAUNCHES,
+            "channels_last_copies": bn.CHANNELS_LAST_COPIES,
             **{"collective_" + k: v for k, v in pmesh.COLLECTIVES.items()}}
 
 
 def reset_counts() -> None:
-    from ..ops import bn_triton
+    from ..ops import bn, bn_triton
     from ..ops import pairwise_order as k3
 
     bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
     bn_triton.STATS_ROUNDED_LAUNCHES = 0
     k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0
+    bn.CHANNELS_LAST_COPIES = 0
     pmesh.COLLECTIVES.clear()
     pmesh.COLLECTIVE_SECONDS.clear()
 
@@ -182,6 +186,73 @@ def classifier_cases(n_data: int, n_model: int, cases: Sequence[Dict],
         _tf32_off()
     mesh = make_mesh(n_data, n_model, device=device)
     return [classifier_run(mesh=mesh, **kw) for kw in cases]
+
+
+# ---------------------------------------------------------------------------
+# spatial partitioning
+# ---------------------------------------------------------------------------
+
+def spatial_ops(n_model: int, specs: Sequence, shape: Sequence[int],
+                seed: int = 0, device: str = "cpu") -> List[Dict]:
+    """The ops of ``parallel/spatial.py`` on this rank's H block of a
+    seeded f32 input x (B, C, H, W), on a (1, n_model) mesh. `specs`:
+    ("conv", k, s, p), ("s2d_conv",) (the s2d stem's 4×4/s1 conv after
+    its (2, 1) pad), ("pool", k, s, p), ("gather",) or ("mean",). Each op
+    runs forward and backward against a seeded upstream gradient of the
+    whole output (this rank takes its block where the output is sharded);
+    returns per spec the output, x's gradient and the weight's gradient
+    (this rank's share) as numpy."""
+    from .spatial import SpatialShards
+
+    mesh = make_mesh(1, n_model, device=device)
+    sp = SpatialShards(mesh)
+    B, C, H, W = shape
+    h = H // n_model
+    rows = slice(mesh.model_index * h, (mesh.model_index + 1) * h)
+    out = []
+    for i, spec in enumerate(specs):
+        rng = np.random.RandomState(seed + i)
+        x_all = (0.1 * rng.randn(B, C, H, W)).astype(np.float32)
+        x = torch.tensor(x_all[:, :, rows], device=mesh.device).contiguous(
+            memory_format=torch.channels_last).requires_grad_(True)
+        w = None
+        kind = spec[0]
+        if kind in ("conv", "s2d_conv"):
+            k = spec[1] if kind == "conv" else 4
+            w = torch.tensor((rng.randn(5, C, k, k) / np.sqrt(C * k * k))
+                             .astype(np.float32), device=mesh.device,
+                             requires_grad=True)
+            if kind == "conv":
+                y = sp.conv2d(x, w, None, (spec[2], spec[2]),
+                              (spec[3], spec[3]))
+            else:
+                y = sp.conv2d(torch.nn.functional.pad(x, (2, 1)), w, None,
+                              (1, 1), (0, 0), pad_h=(2, 1))
+        elif kind == "pool":
+            y = sp.max_pool2d(x, spec[1], spec[2], spec[3])
+        elif kind == "gather":
+            y = sp.gather(x)
+        elif kind == "mean":
+            y = sp.mean(x)
+        else:
+            raise ValueError(f"unknown op {spec}")
+        if kind in ("gather", "mean"):      # whole on every rank
+            full = y.shape
+        else:
+            full = (y.shape[0], y.shape[1], y.shape[2] * n_model, y.shape[3])
+        g_all = (0.1 * rng.randn(*full)).astype(np.float32)
+        g = g_all if kind in ("gather", "mean") else g_all[
+            :, :, mesh.model_index * y.shape[2]:
+            (mesh.model_index + 1) * y.shape[2]]
+        (y * torch.tensor(g, device=mesh.device)).sum().backward()
+        out.append({"y": _numpy({"y": y})["y"],
+                    "dx": _numpy({"dx": x.grad})["dx"],
+                    "dw": None if w is None else _numpy({"dw": w.grad})["dw"],
+                    "channels_last": y.ndim < 4 or y.is_contiguous(
+                        memory_format=torch.channels_last),
+                    "counts": counts()})
+        reset_counts()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -458,13 +529,18 @@ def runner_run(runner: str, n_data: int, n_model: int = 1,
 
 
 def cli_main(module: str, argv: Sequence[str], keep: Sequence[str] = (),
-             jsonl_only: bool = False,
-             mkldnn: Optional[bool] = None) -> Dict:
+             jsonl_only: bool = False, mkldnn: Optional[bool] = None,
+             with_counts: bool = False) -> Dict:
     """A CLI's ``main(argv)`` in a rank of a running process group (its
     runner's ``mesh="auto"`` takes every rank); the result's keys in
-    `keep`."""
+    `keep`, and with `with_counts` this rank's ``counts()`` over the run
+    under "counts"."""
     import importlib
 
     _quiet_logger(jsonl_only, mkldnn)
+    reset_counts()
     res = importlib.import_module(module).main(list(argv))
-    return {k: res[k] for k in keep}
+    out = {k: res[k] for k in keep}
+    if with_counts:
+        out["counts"] = counts()
+    return out

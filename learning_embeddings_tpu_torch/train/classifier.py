@@ -42,6 +42,17 @@ means, summed for ``masked_ce``, whose loss is the batch sum. The loss
 global batch's. A checkpoint holds the sharded head gathered whole, so it
 loads on any mesh and on one device.
 
+``spatial_partition=True`` on a mesh with ``n_model > 1`` (JAX's images
+on ``P("data", "model")``): ``put_batch`` also keeps this rank's block of
+the images' H over 'model', and the trunk runs H-sharded with halo
+exchanges while its layers' rows split evenly, then gathered and
+replicated (``parallel/spatial.py``, ``models/resnet.py``), in the train
+and the eval step. The gradients of the sharded layers are summed over
+'model' (each model rank holds a part of their rows) before the reduction
+over 'data'; the replicated layers' and the head's are reduced over
+'data' only. With no mesh or one model rank the field changes nothing, as
+JAX's spec reduces to data sharding there.
+
 State: PyTorch updates in place, which is what the JAX step's buffer
 donation amounts to. ``train_step`` returns the state it was given, with
 its model and optimizer updated and its step count advanced.
@@ -66,12 +77,14 @@ from ..losses.classification import (
     multi_label_soft_margin,
 )
 from ..models.heads import HierarchicalCNN
-from ..models.resnet import init_params_, s2d_stem_kernel
+from ..models.resnet import (init_params_, s2d_stem_kernel,
+                             spatial_parameters)
 from ..ops.bn import BN_IMPLS, make_norm, set_batch_norm_group
 from ..ops.image import device_scale
 from ..parallel.mesh import (Mesh, all_gather_rows, all_reduce_,
                              all_reduce_grads_, param_shardings,
-                             shard_linear_layers_, shard_rows)
+                             shard_height, shard_linear_layers_, shard_rows)
+from ..parallel.spatial import SpatialShards
 
 __all__ = ["ClassifierConfig", "ClassifierTrainer", "TrainState",
            "make_criterion", "resolve_device", "mesh_or_device", "CRITERIA",
@@ -144,6 +157,8 @@ class ClassifierConfig:
     #                          ops.bn_triton); 'flax' = the library's BN
     bn_stats_dtype: str = "float32"  # 'bfloat16' = bf16 BN statistics
     grad_accum: int = 1      # micro-batches per optimizer update
+    spatial_partition: bool = False  # shard the images' H over 'model'
+    #                                  (on a mesh with n_model > 1)
     tp_patterns: Sequence[str] = ("fc/kernel",)   # sharded over 'model'
     device: str = "cuda"
 
@@ -155,6 +170,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     micro: int = 0   # micro-batches accumulated towards the next update
+    #: the image height of the update's micro-batches (spatial partitioning)
+    height: Optional[int] = None
 
 
 def make_criterion(labelmap: LabelMap, cfg: ClassifierConfig):
@@ -237,6 +254,11 @@ class ClassifierTrainer:
             for owner in shard_linear_layers_(model, mesh, shardings):
                 self._sharded[owner + ".weight"] = model.get_submodule(owner)
             set_batch_norm_group(model, mesh.data_group)
+        #: H-sharded over 'model' (spatial partitioning)
+        self.spatial = (cfg.spatial_partition and mesh is not None
+                        and mesh.n_model > 1)
+        if self.spatial:
+            model.trunk.spatial = SpatialShards(mesh)
         self._sum_grads = cfg.criterion in SUMMED_CRITERIA
         if cfg.freeze_trunk:
             model.trunk.requires_grad_(False)
@@ -280,13 +302,28 @@ class ClassifierTrainer:
         Returns (state, loss) with the loss as a 0-d device tensor."""
         k = self.cfg.grad_accum
         state.model.train(not self.cfg.freeze_bn)
-        raw = self._forward(state.model, images)
-        loss, _ = self.criterion(raw, level_labels, multihot)
         if state.micro == 0:
             state.optimizer.zero_grad(set_to_none=True)
+        if self.spatial:
+            # which layers run H-sharded follows from the height
+            if state.micro == 0 or state.height is None:
+                state.height = images.shape[1]
+            elif images.shape[1] != state.height:
+                raise ValueError(
+                    f"the micro-batches of one update must share their "
+                    f"height: {images.shape[1]} rows after {state.height}")
+        raw = self._forward(state.model, images)
+        loss, _ = self.criterion(raw, level_labels, multihot)
         (loss / k if k > 1 else loss).backward()
         state.micro += 1
         if state.micro == k:
+            if self.spatial:
+                ids = {id(p) for p in spatial_parameters(
+                    state.model.trunk, state.height * self.mesh.n_model,
+                    self.mesh.n_model)}
+                all_reduce_grads_([p for p in self._params if id(p) in ids],
+                                  self.mesh.model_group, average=False,
+                                  tag="grads_model")
             if self.mesh is not None:
                 all_reduce_grads_(self._params, self.mesh.data_group,
                                   average=not self._sum_grads)
@@ -410,10 +447,15 @@ class ClassifierTrainer:
         """Host (numpy) or device batch → tensors on the trainer's device:
         images keep their dtype (uint8 is the transfer format), labels
         become int64, the multi-hot f32. On a mesh, this rank's rows of the
-        global batch."""
+        global batch, and under spatial partitioning this rank's block of
+        the images' H (NHWC) over 'model'."""
         def put(a, dtype=None):
-            t = torch.as_tensor(shard_rows(a, self.mesh))
+            t = torch.as_tensor(a)
             return t.to(self.device, dtype=dtype or t.dtype,
                         non_blocking=True)
-        return (put(images), put(level_labels, torch.int64),
-                put(multihot, torch.float32))
+        images = shard_rows(images, self.mesh)
+        if self.spatial:
+            images = shard_height(images, self.mesh)
+        return (put(images), put(shard_rows(level_labels, self.mesh),
+                                 torch.int64),
+                put(shard_rows(multihot, self.mesh), torch.float32))

@@ -42,11 +42,13 @@ __all__ = [
 ]
 
 
-def git_info() -> Dict[str, str]:
+def git_info(repo_dir: Optional[str] = None) -> Dict[str, str]:
+    """The commit and branch of the git checkout at `repo_dir` (default:
+    the working directory); "unknown" where git cannot tell."""
     def run(*args):
         try:
             return subprocess.run(
-                ["git", *args], capture_output=True, text=True,
+                ["git", *args], cwd=repo_dir, capture_output=True, text=True,
                 timeout=10).stdout.strip()
         except Exception:
             return "unknown"
@@ -159,14 +161,15 @@ class Checkpointer:
 
 
 class MetricsLogger:
-    """Tensorboard scalars + a jsonl mirror (metrics stay greppable
-    without tensorboard); on rank 0 only."""
+    """Tensorboard scalars (with `use_tensorboard`, where tensorboard
+    imports) + a jsonl mirror (metrics stay greppable without
+    tensorboard); on rank 0 only."""
 
-    def __init__(self, exp: ExperimentDir):
+    def __init__(self, exp: ExperimentDir, use_tensorboard: bool = True):
         self.jsonl_path = os.path.join(exp.logs, "metrics.jsonl")
         self.writes = is_writer()
         self._tb = None
-        if not self.writes:
+        if not (self.writes and use_tensorboard):
             return
         try:
             from torch.utils.tensorboard import SummaryWriter

@@ -26,11 +26,13 @@ Meshes, as in the JAX runners: ``mesh="auto"`` (the classifier's and the
 label-only runner's default) takes every rank of the process group when
 one is up (``torchrun``, ``parallel.mesh.init_from_env``) and the batch
 divides over them, with ``n_model`` ranks of each data shard holding the
-classifier's tensor-parallel head; without a process group it means one
-device. A ``parallel.mesh.Mesh`` is used as it is; None is one device.
-Unlike the JAX runner, "auto" raises where the batch does not divide over
-several ranks, or where ``n_model > 1`` finds no ranks to shard over: one
-device per rank would train copies side by side. The classifier's evals
+classifier's tensor-parallel head (and, with the config's
+``spatial_partition``, the blocks of the images' H); without a process
+group it means one device. A ``parallel.mesh.Mesh`` is used as it is;
+None is one device. Unlike the JAX runner, "auto" raises where the batch
+does not divide over several ranks, or where ``n_model > 1`` finds no
+ranks to shard over: one device per rank would train copies side by
+side. The classifier's evals
 pad a ragged tail batch to the full batch on a mesh (the padding rows
 dropped from the scores and the loss). Only rank 0 writes the manifest,
 the metrics, the reports, the plots and the checkpoints

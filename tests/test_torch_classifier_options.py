@@ -262,14 +262,15 @@ def test_load_backbone_state_dict_matches_jax(tmp_path, grayscale):
 def test_config_defaults_equal_jax():
     """Every field both configs have defaults to the same value, except
     the BatchNorm route (the port defaults to the fused reductions) and
-    the dtype's type; the JAX-only fields are the TPU/XLA one and the
-    unported spatial partitioning, which the CLI refuses (the head's
-    `tp_patterns` is on both sides since the port has meshes)."""
+    the dtype's type; the one JAX-only field is the TPU/XLA one, buffer
+    donation (the head's `tp_patterns` and `spatial_partition` are on both
+    sides since the port has meshes and spatial partitioning)."""
     def defaults(cls):
         return {f.name: f.default for f in dataclasses.fields(cls)}
     port, ref = defaults(ClassifierConfig), defaults(JaxConfig)
     assert set(port) - set(ref) == {"device"}
-    assert set(ref) - set(port) == {"donate", "spatial_partition"}
+    assert set(ref) - set(port) == {"donate"}
+    assert port["spatial_partition"] is ref["spatial_partition"] is False
     for k in sorted(set(port) & set(ref) - {"bn_impl", "dtype"}):
         assert port[k] == ref[k], k
     assert (port["bn_impl"], ref["bn_impl"]) == ("pallas", "flax")

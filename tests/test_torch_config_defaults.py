@@ -8,10 +8,9 @@ one side has are exactly the expected ones:
 * `donate` (JAX only): buffer donation to the jitted step; the torch step
   updates parameters and optimizer state in place, so it has no
   counterpart.
-* ClassifierConfig, JAX only, also `spatial_partition`: the image's
-  spatial partition over a mesh (not ported: ROADMAP.md queue A item 28).
-  `tp_patterns`, the head's tensor-parallel sharding, has the same
-  default on both sides.
+* ClassifierConfig: `spatial_partition` (the images' H sharded over the
+  mesh's 'model' axis) and `tp_patterns` (the head's tensor-parallel
+  sharding) are on both sides with the same defaults.
 
 One default differs by design: ClassifierConfig's `bn_impl` is 'pallas'
 in the port (the fused reductions, the port's kernels K1 and K2) and
@@ -44,8 +43,9 @@ PAIRS = {"JointCNNConfig": (JointCNNConfig, JaxJointCNNConfig),
          "EmbeddingTrainerConfig": (EmbeddingTrainerConfig,
                                     JaxEmbeddingConfig),
          "ClassifierConfig": (ClassifierConfig, JaxClassifierConfig)}
-#: fields only the JAX config has, beyond `donate`
-JAX_ONLY = {"ClassifierConfig": {"spatial_partition"}}
+#: fields only the JAX config has, beyond `donate` (none since spatial
+#: partitioning is ported)
+JAX_ONLY = {}
 #: (port, JAX) defaults that differ by design
 DIFFERENT = {"ClassifierConfig": {"bn_impl": ("pallas", "flax")}}
 #: the same value in the two frameworks' spellings

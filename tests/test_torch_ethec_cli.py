@@ -13,8 +13,10 @@ against the JAX package's.
   runs flax's BatchNorm, the port its fused reductions): the files
   written, the checkpoint epochs, the manifest's keys and the score
   dumps' shapes (and ``correct_labels.npy`` exactly).
-* Without ``--device`` and without a card the CLIs raise; the unported
-  flags raise naming their ROADMAP item.
+* Without ``--device`` and without a card the CLIs raise; ``--n_model 2``
+  without ranks raises the JAX mesh error, and ``--spatial_partition``
+  without ranks runs the one-device run, as the JAX CLI does (under
+  ranks: ``tests/test_torch_mesh_runner.py``).
 * ``image_emb`` features equal the JAX trunk's (float32 on both sides,
   the same weights) within rtol 1e-4, atol 1e-5; ``inverse_class_weights``
   equals the JAX package's exactly.
@@ -265,13 +267,35 @@ def test_cli_runs_on_the_card_unless_asked(png_split, tmp_path):
     # without a process group there are no ranks for the head's blocks
     # (under torchrun: tests/test_torch_mesh_runner.py)
     ("--n_model 2", ValueError, r"does not fit the 1 available device"),
-    ("--spatial_partition", NotImplementedError, "item 28")])
+    ("--spatial_partition --n_model 2", ValueError,
+     r"does not fit the 1 available device")])
 def test_unported_flags_raise(png_split, tmp_path, flags, err, item):
     data, images = png_split
     with pytest.raises(err, match=item):
         t_ethec.main(_argv(data, images, str(tmp_path), "--n_epochs", "1",
                            "--set_mode", "train", "--device", "cpu",
                            *flags.split()))
+
+
+def test_spatial_partition_without_ranks_is_the_one_device_run(
+        png_split, tmp_path, native_cpu_convs):
+    """With no mesh the JAX CLI's --spatial_partition changes nothing
+    (JAX ``train/classifier.py:194-200`` builds no image sharding): the
+    port's run with the flag equals the run without it, bit for bit."""
+    data, images = png_split
+    runs = {}
+    for name, flags in (("flag", ["--spatial_partition"]), ("plain", [])):
+        exp = str(tmp_path / name)
+        res = t_ethec.main(_argv(data, images, exp, "--n_epochs", "1",
+                                 "--set_mode", "train", "--device", "cpu",
+                                 *flags))
+        runs[name] = (res, np.load(os.path.join(
+            exp, "e", "stats", "predicted_scores.npy")))
+    (got, got_scores), (want, want_scores) = runs["flag"], runs["plain"]
+    assert got["test_metrics"] == want["test_metrics"]
+    np.testing.assert_array_equal(got_scores, want_scores)
+    assert "spatial_partition: True" in open(os.path.join(
+        tmp_path, "flag", "e", "config_params.txt")).read()
 
 
 def test_inverse_class_weights_equal_jax(png_split):

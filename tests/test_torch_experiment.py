@@ -226,6 +226,35 @@ def test_metrics_logger_jsonl_records(tmp_path, monkeypatch):
     assert all(isinstance(r["t"], float) for r in recs)
 
 
+def test_metrics_logger_without_tensorboard_equals_jax(tmp_path,
+                                                     monkeypatch):
+    """``use_tensorboard=False`` (JAX ``tests/test_tblog.py:20``): no
+    tensorboard import is tried, and both write the same jsonl records.
+    The import is blocked, so asking for it would fall back silently
+    while this test still sees no writer."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    recs = {}
+    for name, mod in (("port", texp), ("jax", jexp)):
+        exp = mod.ExperimentDir(str(tmp_path / name), "log")
+        logger = mod.MetricsLogger(exp, use_tensorboard=False)
+        assert logger._tb is None
+        logger.scalar("train/loss", 0.5, 1)
+        logger.scalars("val", {"f1": 0.25}, 2)
+        logger.close()
+        recs[name] = [{k: v for k, v in json.loads(line).items()
+                       if k != "t"} for line in open(logger.jsonl_path)]
+    assert recs["port"] == recs["jax"] and len(recs["port"]) == 2
+
+
+def test_git_info_of_a_directory_equals_jax(tmp_path):
+    """``git_info(repo_dir=)``: the checkout this file sits in, and a
+    directory that is no checkout, as the JAX function reports them."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for where in (here, str(tmp_path)):
+        assert texp.git_info(repo_dir=where) == jexp.git_info(repo_dir=where)
+    assert texp.git_info() == jexp.git_info()
+
+
 # ----------------------------------------------------------------------
 # JAX checkpoints carried over
 # ----------------------------------------------------------------------

@@ -70,7 +70,9 @@ def test_port_has_the_slice_modules():
                 "data/build_db.py", "cli/debug_launchers.py",
                 # slice 10
                 "parallel/__init__.py", "parallel/mesh.py",
-                "parallel/launch.py", "parallel/programs.py"]:
+                "parallel/launch.py", "parallel/programs.py",
+                # slice 11
+                "parallel/spatial.py"]:
         assert (PORT / rel).is_file(), rel
     assert (ROOT / "chip_smoke.py").is_file()
 

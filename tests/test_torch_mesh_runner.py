@@ -169,7 +169,14 @@ def test_dryrun_multichip_on_the_cpu(capsys):
     assert summary["mesh"] == {"data": 2, "model": 2}
     assert summary["eval_meshed"]["joint_cnn_rows"] == [11, 4]
     assert summary["eval_meshed"]["joint_fc7_rows"] == [5, 4]
-    for k in ("classifier", "grad_accum", "joint", "joint_cnn",
-              "joint_cnn_tower_warm", "label_embedding"):
+    for k in ("classifier", "grad_accum", "spatial_grad_accum", "joint",
+              "joint_cnn", "joint_cnn_tower_warm", "label_embedding"):
         assert np.isfinite(summary[k]), k
-    assert "not ported" in summary["spatial_partition"]
+    # JAX's stage: spatial + grad_accum=2, ResNet-18@64, on (n/2, 2): the
+    # grad_accum stage's function on the same batch (bf16 trunks), with
+    # 18 forward and 17 backward halo exchanges a micro-step (the stem,
+    # the pool and 16 3×3 convs; the image takes no gradient)
+    assert "spatial_partition" not in summary
+    assert abs(summary["spatial_grad_accum"] - summary["grad_accum"]) <= \
+        1e-2 * abs(summary["grad_accum"])
+    assert summary["spatial_halos"] == {"halo": 2 * 18, "halo_grad": 2 * 17}

@@ -6,9 +6,11 @@ Tolerance: none. Both sides decode with the same cv2 and draw every crop,
 flip and resampled index from the same numpy ``RandomState`` seeds, so
 batches (pixels, labels, multi-hots, indices) and epoch orders are
 compared bit for bit: train and eval, uint8 and float32 output,
-grayscale, the 'rrc' augmentation and the in-memory branch, on PNGs the
-tests write. Also: a producer's error reaches the consumer, and a
-consumer that abandons an epoch leaves no producer thread behind.
+grayscale, the 'rrc' augmentation, ``normalize=(mean, std)`` and the
+in-memory branch, on PNGs the tests write. Also: uint8 output with
+``normalize`` raises the JAX error, ``prefetch`` bounds the queue, a
+producer's error reaches the consumer, and a consumer that abandons an
+epoch leaves no producer thread behind.
 """
 
 import threading
@@ -81,6 +83,13 @@ CASES = {
     "train_rrc": dict(train=True, augment="rrc", out_dtype="uint8"),
     "train_rrc_f32": dict(train=True, augment="rrc"),
     "train_gray_f32": dict(train=True, grayscale=True),
+    # ImageNet's mean and std, as the reference's transforms take them
+    "train_normalize": dict(train=True, normalize=(
+        (0.485, 0.456, 0.406), (0.229, 0.224, 0.225))),
+    "eval_normalize": dict(train=False, prefetch=1, normalize=(
+        (0.5, 0.5, 0.5), (0.25, 0.5, 1.0))),
+    "train_uint8_prefetch1": dict(train=True, out_dtype="uint8",
+                                  prefetch=1),
 }
 
 
@@ -97,6 +106,36 @@ def test_batches_bit_equal_jax(png_data, case):
     # train drops the ragged tail, eval keeps it
     assert len(got) == (len(ds) // 5 if kw["train"] else -(-len(ds) // 5))
     assert len(tpipe.ImagePipeline(ds, lm, root, **kw)) == len(got)
+
+
+def test_uint8_with_normalize_raises_the_jax_error(png_data):
+    root, lm, ds, jlm, jds = png_data
+    kw = dict(image_size=16, out_dtype="uint8",
+              normalize=((0.5, 0.5, 0.5), (0.5, 0.5, 0.5)))
+    with pytest.raises(ValueError) as want:
+        jpipe.ImagePipeline(jds, jlm, root, **kw)
+    with pytest.raises(ValueError) as got:
+        tpipe.ImagePipeline(ds, lm, root, **kw)
+    assert str(got.value) == str(want.value)
+    assert "normalize=None" in str(got.value)
+
+
+def test_prefetch_bounds_the_queue(png_data, monkeypatch):
+    """`prefetch` is the queue's depth (default PIPELINE_PREFETCH)."""
+    root, lm, ds, _, _ = png_data
+    depths = []
+    real = tpipe.queue.Queue
+
+    def spy(maxsize=0):
+        depths.append(maxsize)
+        return real(maxsize)
+
+    monkeypatch.setattr(tpipe.queue, "Queue", spy)
+    for kw in (dict(prefetch=2), {}):
+        pipe = tpipe.ImagePipeline(ds, lm, root, image_size=16,
+                                   batch_size=5, num_workers=2, **kw)
+        assert len(_all_batches(pipe, np.arange(len(ds)), 0)) == len(pipe)
+    assert depths == [2, tpipe.PIPELINE_PREFETCH]
 
 
 def test_epoch_seed_changes_the_crops(png_data):
