@@ -1,0 +1,27 @@
+"""launch_ms.joint: host milliseconds a joint step of the main thread's
+launches (``train_prepared``: the tower's forward, the loss, the backward
+and both updates), read from the program's host spans "joint.launch"
+(``train/joint_cnn.py::train_epoch``, one a step) over the window's
+untraced part: the spans that end before the program first saw the
+profiler and start no earlier than the untraced part's length before
+that. A program without the span reads nothing, nor does a run whose
+trace holds no device operation (no card: the benchmark's CPU runs).
+Layer: trainer host path. Moves joint_edges_per_s."""
+
+SPAN = "joint.launch"
+
+
+def read(window, info):
+    try:
+        from learning_embeddings_tpu_torch.utils.profiling import (
+            profiled_since_ns, spans)
+    except ImportError:
+        return None
+    until = profiled_since_ns()
+    untraced_s = info.get("host", {}).get("window_s")
+    if until is None or not untraced_s or not window.ops:
+        return None
+    got = spans(SPAN, since_ns=until - int(untraced_s * 1e9), until_ns=until)
+    if not got:
+        return None
+    return sum(r.host_ms for r in got) / len(got)

@@ -83,6 +83,7 @@ from torch import nn
 
 from ..parallel.mesh import (all_gather_rows, all_reduce_, group_rank,
                              group_size)
+from ..utils import profiling
 
 __all__ = ["batch_norm_train", "ghost_batch_norm_train", "BatchNormBase",
            "FusedBatchNorm", "GhostBatchNorm", "FlaxBatchNorm", "make_norm",
@@ -160,6 +161,67 @@ def _per_channel(v, like):
     return v.view((1, -1) + (1,) * (like.ndim - 2))
 
 
+def _fwd_epilogue(x, scale, bias, eps, s, q, n, round_bf16=False):
+    """The forward after K1's sums s = Σx, q = Σx² over n rows: the
+    statistics (each mean rounded to bf16 with `round_bf16`), the biased
+    variance, the fold into a = scale·rsqrt(var + eps), b = bias − mean·a,
+    and y = x·a + b in x's dtype. Returns (y, mean, var, inv, d), d the
+    variance before its clamp at 0. Run in the span "bn.fwd_epilogue"."""
+    mean, msq = s / n, q / n
+    if round_bf16:   # jnp.mean of a bf16 array: f32 sum, bf16 result
+        mean = mean.to(torch.bfloat16).float()
+        msq = msq.to(torch.bfloat16).float()
+    d = msq - mean * mean
+    var = torch.clamp_min(d, 0.0)
+    inv = torch.rsqrt(var + eps)
+    a = scale.float() * inv
+    b = bias.float() - mean * a
+    y = torch.addcmul(_per_channel(b.to(x.dtype), x), x,
+                      _per_channel(a.to(x.dtype), x))
+    return y, mean, var, inv, d
+
+
+def _bwd_epilogue(x, dy, scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own, R):
+    """The backward after K2's sums (global: sdy, sdyx; this rank's:
+    sdy_own, sdyx_own) over R rows: dx in f32, cast to x's dtype, and the
+    scale's and bias's gradients from this rank's rows. Run in the span
+    "bn.bwd_epilogue"."""
+    # Σ dy·x̂ = (Σ dy·x − mean·Σ dy) · inv
+    sdyxh = (sdyx - mean * sdy) * inv
+    g = scale.float() * inv
+    mean_dy = sdy / R
+    mean_dyxh = sdyxh / R
+    xhat = (x.float() - _per_channel(mean, x)).mul_(_per_channel(inv, x))
+    dx = (dy.to(torch.float32, copy=True)
+          .sub_(_per_channel(mean_dy, x))
+          .sub_(xhat.mul_(_per_channel(mean_dyxh, x)))
+          .mul_(_per_channel(g, x)))
+    dscale = (sdyx_own - mean * sdy_own) * inv
+    return dx.to(x.dtype), dscale.to(scale.dtype), sdy_own.to(scale.dtype)
+
+
+def _ghost_bwd_epilogue(x, dy, scale, mean, inv, d, sdy, sdyx, sdy_own,
+                        sdyx_own, rows, n, round_bf16):
+    """``_bwd_epilogue`` of the ghost statistics (of the first `rows`
+    images, n rows of the global batch): the JAX package's autodiff
+    written out. Run in the span "bn.bwd_epilogue"."""
+    g = scale.float() * inv
+    # through b = bias − mean·a: da = Σdy·x − mean·Σdy
+    da = sdyx - mean * sdy
+    # d max(d, 0)/dd as jnp.maximum's: 1 above 0, ½ at 0, 0 below
+    slope = (d > 0).float() + 0.5 * (d == 0).float()
+    dvar = -0.5 * inv ** 3 * scale.float() * da * slope
+    dmean = -sdy * g - 2 * mean * dvar
+    dx = dy.to(torch.float32, copy=True).mul_(_per_channel(g, x))
+    xs = x[:rows]
+    if round_bf16:
+        xs = xs.to(torch.bfloat16)
+    dx[:rows].add_(_per_channel(dmean / n, x)).add_(
+        torch.mul(xs.float(), _per_channel(2 * dvar / n, x)))
+    dscale = (sdyx_own - mean * sdy_own) * inv
+    return dx.to(x.dtype), dscale.to(scale.dtype), sdy_own.to(scale.dtype)
+
+
 class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
@@ -168,13 +230,9 @@ class _BatchNormTrain(torch.autograd.Function):
         x2 = _rows(x)
         R = x2.shape[0] * group_size(group)
         s, q = _summed(group, "bn_stats", *_stats(x2))
-        mean = s / R
-        var = torch.clamp_min(q / R - mean * mean, 0.0)
-        inv = torch.rsqrt(var + eps)
-        a = scale.float() * inv
-        b = bias.float() - mean * a
-        y = torch.addcmul(_per_channel(b.to(x.dtype), x), x,
-                          _per_channel(a.to(x.dtype), x))
+        y, mean, var, inv, _ = profiling.in_device_span(
+            "bn.fwd_epilogue", x.device, _fwd_epilogue, x, scale, bias, eps,
+            s, q, R)
         ctx.save_for_backward(x, scale, mean, inv)
         ctx.group = group
         ctx.mark_non_differentiable(mean, var)
@@ -188,20 +246,9 @@ class _BatchNormTrain(torch.autograd.Function):
         R = x.numel() // x.shape[1] * group_size(ctx.group)
         sdy_own, sdyx_own = _corr(_rows(dy), _rows(x))
         sdy, sdyx = _summed(ctx.group, "bn_corr", sdy_own, sdyx_own)
-        # Σ dy·x̂ = (Σ dy·x − mean·Σ dy) · inv
-        sdyxh = (sdyx - mean * sdy) * inv
-        g = scale.float() * inv
-        mean_dy = sdy / R
-        mean_dyxh = sdyxh / R
-        xhat = (x.float() - _per_channel(mean, x)).mul_(_per_channel(inv, x))
-        dx = (dy.to(torch.float32, copy=True)
-              .sub_(_per_channel(mean_dy, x))
-              .sub_(xhat.mul_(_per_channel(mean_dyxh, x)))
-              .mul_(_per_channel(g, x)))
-        # the scale's and bias's gradients from this rank's rows
-        dscale = (sdyx_own - mean * sdy_own) * inv
-        return (dx.to(x.dtype), dscale.to(scale.dtype),
-                sdy_own.to(scale.dtype), None, None)
+        return profiling.in_device_span(
+            "bn.bwd_epilogue", x.device, _bwd_epilogue, x, dy, scale, mean,
+            inv, sdy, sdyx, sdy_own, sdyx_own, R) + (None, None)
 
 
 def batch_norm_train(x, scale, bias, eps: float = 1e-5, group=None):
@@ -237,17 +284,9 @@ class _GhostBatchNormTrain(torch.autograd.Function):
         else:   # no row of this rank is in the prefix: no launch
             s = q = torch.zeros(x2.shape[1], device=x.device)
         s, q = _summed(group, "bn_stats", s, q)
-        mean, msq = s / n, q / n
-        if round_bf16:   # jnp.mean of a bf16 array: f32 sum, bf16 result
-            mean = mean.to(torch.bfloat16).float()
-            msq = msq.to(torch.bfloat16).float()
-        d = msq - mean * mean
-        var = torch.clamp_min(d, 0.0)
-        inv = torch.rsqrt(var + eps)
-        a = scale.float() * inv
-        b = bias.float() - mean * a
-        y = torch.addcmul(_per_channel(b.to(x.dtype), x), x,
-                          _per_channel(a.to(x.dtype), x))
+        y, mean, var, inv, d = profiling.in_device_span(
+            "bn.fwd_epilogue", x.device, _fwd_epilogue, x, scale, bias, eps,
+            s, q, n, round_bf16)
         ctx.save_for_backward(x, scale, mean, inv, d)
         ctx.rows, ctx.n, ctx.round_bf16 = rows, n, round_bf16
         ctx.group = group
@@ -260,23 +299,10 @@ class _GhostBatchNormTrain(torch.autograd.Function):
         dy = _channel_minor(dy)
         sdy_own, sdyx_own = _corr(_rows(dy), _rows(x))    # over all R rows
         sdy, sdyx = _summed(ctx.group, "bn_corr", sdy_own, sdyx_own)
-        g = scale.float() * inv
-        # through b = bias − mean·a: da = Σdy·x − mean·Σdy
-        da = sdyx - mean * sdy
-        # d max(d, 0)/dd as jnp.maximum's: 1 above 0, ½ at 0, 0 below
-        slope = (d > 0).float() + 0.5 * (d == 0).float()
-        dvar = -0.5 * inv ** 3 * scale.float() * da * slope
-        dmean = -sdy * g - 2 * mean * dvar
-        dx = dy.to(torch.float32, copy=True).mul_(_per_channel(g, x))
-        xs = x[:ctx.rows]
-        if ctx.round_bf16:
-            xs = xs.to(torch.bfloat16)
-        dx[:ctx.rows].add_(_per_channel(dmean / ctx.n, x)).add_(
-            torch.mul(xs.float(), _per_channel(2 * dvar / ctx.n, x)))
-        # the scale's and bias's gradients from this rank's rows
-        dscale = (sdyx_own - mean * sdy_own) * inv
-        return (dx.to(x.dtype), dscale.to(scale.dtype),
-                sdy_own.to(scale.dtype), None, None, None, None, None, None)
+        return profiling.in_device_span(
+            "bn.bwd_epilogue", x.device, _ghost_bwd_epilogue, x, dy, scale,
+            mean, inv, d, sdy, sdyx, sdy_own, sdyx_own, ctx.rows, ctx.n,
+            ctx.round_bf16) + (None,) * 6
 
 
 def ghost_batch_norm_train(x, scale, bias, eps: float = 1e-5,

@@ -30,7 +30,10 @@ collectives GSPMD would insert are written out:
   the group, or not, then this rank's block), ``copy_to_group``
   (identity forward, sum backward) and ``reduce_from_group`` (sum
   forward, identity backward). Every call counts in ``COLLECTIVES`` by
-  tag; nothing catches a failed collective.
+  tag and runs in the device span ``collective.<tag>``
+  (``utils/profiling.py``: under a profiler, its event pair on the
+  compute stream times what the collective holds that stream up, with no
+  synchronise); nothing catches a failed collective.
 * ``init_from_env``: the default process group of a rank that ``torchrun``
   started, with a time limit on every collective.
 """
@@ -42,7 +45,6 @@ import dataclasses
 import datetime
 import os
 import re
-import time
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +52,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils import profiling
 
 __all__ = ["Mesh", "make_mesh", "mesh_device", "init_from_env",
            "default_backend", "shard_rows", "shard_height",
@@ -66,10 +70,6 @@ DEFAULT_TIMEOUT_S = 300
 
 #: collectives issued by this process, by tag
 COLLECTIVES: collections.Counter = collections.Counter()
-#: when True, every collective synchronises the card before and after it
-#: and adds its wall time to COLLECTIVE_SECONDS[tag] (measurement only)
-TIME_COLLECTIVES = False
-COLLECTIVE_SECONDS: collections.Counter = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -236,15 +236,8 @@ def all_reduce_(t: torch.Tensor, group, tag: str,
     if group is None:
         return t
     COLLECTIVES[tag] += 1
-    if TIME_COLLECTIVES:
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        t0 = time.perf_counter()
-    dist.all_reduce(t, group=group)
-    if TIME_COLLECTIVES:
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        COLLECTIVE_SECONDS[tag] += time.perf_counter() - t0
+    with profiling.span("collective." + tag, t.device):
+        dist.all_reduce(t, group=group)
     if average:
         t.div_(dist.get_world_size(group))
     return t
@@ -274,7 +267,8 @@ def barrier(group=None) -> None:
     dev = (torch.device("cuda", torch.cuda.current_device())
            if dist.get_backend(group) == "nccl" else torch.device("cpu"))
     COLLECTIVES["barrier"] += 1
-    dist.all_reduce(torch.zeros(1, device=dev), group=group)
+    with profiling.span("collective.barrier", dev):
+        dist.all_reduce(torch.zeros(1, device=dev), group=group)
 
 
 class _GatherRows(torch.autograd.Function):

@@ -13,6 +13,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import mesh as pmesh
 from .mesh import make_mesh
 
@@ -48,7 +49,6 @@ def reset_counts() -> None:
     k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0
     bn.CHANNELS_LAST_COPIES = 0
     pmesh.COLLECTIVES.clear()
-    pmesh.COLLECTIVE_SECONDS.clear()
 
 
 def _numpy(sd) -> Dict[str, np.ndarray]:
@@ -61,6 +61,30 @@ def _numpy(sd) -> Dict[str, np.ndarray]:
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _profiled_collectives(device, step):
+    """(seconds, {tag: ms}) of one `step()` run under the profiler, which
+    turns the collectives' device spans on: each tag's exposed time on the
+    compute stream (its event pairs; on CPU tensors, its host spans). The
+    card is synchronised before and after the step only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = torch.device(device).type == "cuda"
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CUDA if on_card
+                             else ProfilerActivity.CPU]):
+        t0 = time.perf_counter_ns()
+        step()
+        _sync(device)
+        step_s = (time.perf_counter_ns() - t0) / 1e9
+    ms: Dict[str, float] = {}
+    for r in profiling.spans(since_ns=t0):
+        if r.name.startswith("collective."):
+            tag = r.name[len("collective."):]
+            d = profiling.device_ms(r)
+            ms[tag] = ms.get(tag, 0.0) + (r.host_ms if d is None else d)
+    return step_s, ms
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +118,10 @@ def classifier_run(labelmap, cfg, batches: Sequence = (), *, mesh=None,
     ((images, level_labels, multihot) numpy tuples), from `weights` (a
     whole state dict) or the seeded start; then, with `timed_steps`, that
     many more steps on the last batch timed on the host clock around a
-    synchronise, with the collectives' share measured in one extra step.
+    synchronise (``ms_per_step``), and one more under the profiler
+    (``timed_step_ms``, the profiler's cost included), whose collectives'
+    spans give each tag's exposed milliseconds (``collective_ms``) and
+    their share of an untraced step (``collective_share``).
     Returns the eval loss and scores of `eval_batch` at the start, the
     global losses, the running statistics and the `state_keys` entries of
     the whole state dict after the steps, and the kernel launches and
@@ -141,23 +168,12 @@ def classifier_run(labelmap, cfg, batches: Sequence = (), *, mesh=None,
         float(loss)
         _sync(tr.device)
         out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / timed_steps
-        # one step with every collective timed between two synchronises
-        pmesh.COLLECTIVE_SECONDS.clear()
-        pmesh.TIME_COLLECTIVES = True
-        try:
-            _sync(tr.device)
-            t0 = time.perf_counter()
-            tr.state, loss = tr.train_step(tr.state, *b)
-            float(loss)
-            _sync(tr.device)
-            step_s = time.perf_counter() - t0
-        finally:
-            pmesh.TIME_COLLECTIVES = False
+        # one step under the profiler: each collective's span times it
+        step_s, out["collective_ms"] = _profiled_collectives(
+            tr.device, lambda: float(tr.train_step(tr.state, *b)[1]))
         out["timed_step_ms"] = step_s * 1e3
-        out["collective_ms"] = {k: v * 1e3 for k, v in
-                                pmesh.COLLECTIVE_SECONDS.items()}
-        out["collective_share"] = (sum(pmesh.COLLECTIVE_SECONDS.values())
-                                   / step_s)
+        out["collective_share"] = (sum(out["collective_ms"].values())
+                                   / out["ms_per_step"])
     if tr.device.type == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated(tr.device) / 2**30
     return out

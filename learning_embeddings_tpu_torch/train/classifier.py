@@ -85,10 +85,11 @@ from ..parallel.mesh import (Mesh, all_gather_rows, all_reduce_,
                              all_reduce_grads_, param_shardings,
                              shard_height, shard_linear_layers_, shard_rows)
 from ..parallel.spatial import SpatialShards
+from ..utils import profiling
 
 __all__ = ["ClassifierConfig", "ClassifierTrainer", "TrainState",
-           "make_criterion", "resolve_device", "mesh_or_device", "CRITERIA",
-           "CRITERION_TO_HEAD", "BN_IMPLS", "SUMMED_CRITERIA"]
+           "make_criterion", "resolve_device", "mesh_or_device", "to_device",
+           "CRITERIA", "CRITERION_TO_HEAD", "BN_IMPLS", "SUMMED_CRITERIA"]
 
 CRITERIA = ("multi_level_ce", "last_level_ce", "masked_ce",
             "multi_label_sm", "hsoftmax")
@@ -114,6 +115,17 @@ def resolve_device(device) -> torch.device:
             "device='cuda' was asked for but no CUDA card is available; "
             "pass device='cpu' to run on the CPU")
     return device
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """A host array (or tensor) as a tensor on `device`, its dtype kept
+    unless `dtype` is given; the copy alone runs in the host span
+    "copy.h2d", which a profiler trace's ``cudaMemcpyAsync`` call lies in
+    (``utils/profiling.py::trace_offset_ns`` puts the spans on the
+    trace's clock by these)."""
+    t = torch.as_tensor(a)
+    with profiling.span("copy.h2d"):
+        return t.to(device, dtype=dtype or t.dtype, non_blocking=True)
 
 
 def mesh_or_device(mesh, device) -> torch.device:
@@ -312,9 +324,11 @@ class ClassifierTrainer:
                 raise ValueError(
                     f"the micro-batches of one update must share their "
                     f"height: {images.shape[1]} rows after {state.height}")
-        raw = self._forward(state.model, images)
-        loss, _ = self.criterion(raw, level_labels, multihot)
-        (loss / k if k > 1 else loss).backward()
+        with profiling.span("classifier.forward", self.device):
+            raw = self._forward(state.model, images)
+            loss, _ = self.criterion(raw, level_labels, multihot)
+        with profiling.span("classifier.backward", self.device):
+            (loss / k if k > 1 else loss).backward()
         state.micro += 1
         if state.micro == k:
             if self.spatial:
@@ -327,8 +341,9 @@ class ClassifierTrainer:
             if self.mesh is not None:
                 all_reduce_grads_(self._params, self.mesh.data_group,
                                   average=not self._sum_grads)
-            state.optimizer.step()
-            state.scheduler.step()
+            with profiling.span("classifier.optimizer", self.device):
+                state.optimizer.step()
+                state.scheduler.step()
             state.micro = 0
         state.step += 1
         return state, self._global_loss(loss.detach())
@@ -449,13 +464,11 @@ class ClassifierTrainer:
         become int64, the multi-hot f32. On a mesh, this rank's rows of the
         global batch, and under spatial partitioning this rank's block of
         the images' H (NHWC) over 'model'."""
-        def put(a, dtype=None):
-            t = torch.as_tensor(a)
-            return t.to(self.device, dtype=dtype or t.dtype,
-                        non_blocking=True)
         images = shard_rows(images, self.mesh)
         if self.spatial:
             images = shard_height(images, self.mesh)
-        return (put(images), put(shard_rows(level_labels, self.mesh),
-                                 torch.int64),
-                put(shard_rows(multihot, self.mesh), torch.float32))
+        return (to_device(images, self.device),
+                to_device(shard_rows(level_labels, self.mesh), self.device,
+                          torch.int64),
+                to_device(shard_rows(multihot, self.mesh), self.device,
+                          torch.float32))

@@ -70,7 +70,8 @@ from ..ops.bn import set_batch_norm_group
 from ..ops.image import device_scale
 from ..parallel.mesh import (all_gather_rows, check_batch_divides,
                              gather_rows, global_step_outputs, shard_rows)
-from .classifier import mesh_or_device
+from ..utils import profiling
+from .classifier import mesh_or_device, to_device
 from .joint import (DEFAULT_CURRICULUM, DEFAULT_K, JOINT_MODE,
                     JointOptimization, check_joint_options,
                     curriculum_levels_for_epoch, detached, epoch_edge_order,
@@ -221,10 +222,6 @@ class JointCNNTrainer(JointOptimization):
         self.optimal_threshold = None if np.isnan(thr) else thr
 
     # ------------------------------------------------------------------
-    def _put(self, a, dtype=None):
-        t = torch.as_tensor(a)
-        return t.to(self.device, dtype=dtype or t.dtype, non_blocking=True)
-
     def prepare_batch(self, pos_from: np.ndarray, pos_to: np.ndarray):
         """Host side of one step: negative sampling, unique-pixel gather,
         slot indexing. Returns the argument tuple of `train_prepared`, on
@@ -232,10 +229,11 @@ class JointCNNTrainer(JointOptimization):
         and of the edges (the slots index the global unique images)."""
         g = self.graph
         nl = g.n_labels
-        nf, nt = sample_joint_negatives_np(
-            g, self.cfg.neg_to_pos_ratio, self._rng, pos_from, pos_to,
-            pick_per_level=self.cfg.pick_per_level,
-            levels_to_hide=self.cfg.levels_to_hide)
+        with profiling.span("joint.sample"):
+            nf, nt = sample_joint_negatives_np(
+                g, self.cfg.neg_to_pos_ratio, self._rng, pos_from, pos_to,
+                pick_per_level=self.cfg.pick_per_level,
+                levels_to_hide=self.cfg.levels_to_hide)
         all_ids = np.concatenate([pos_from, pos_to, nf, nt])
         img_rows = np.unique(all_ids[all_ids >= nl]) - nl
         if len(img_rows) == 0:
@@ -261,11 +259,11 @@ class JointCNNTrainer(JointOptimization):
             return np.where(valid, slots, -1)
 
         ids = [pos_from, pos_to, nf, nt]
-        return (self._put(pixels),
-                *(self._put(shard_rows(np.asarray(a), self.mesh),
-                            torch.int64) for a in ids),
-                *(self._put(shard_rows(pix_idx(a), self.mesh), torch.int64)
-                  for a in ids))
+        return (to_device(pixels, self.device),
+                *(to_device(shard_rows(np.asarray(a), self.mesh),
+                            self.device, torch.int64) for a in ids),
+                *(to_device(shard_rows(pix_idx(a), self.mesh), self.device,
+                            torch.int64) for a in ids))
 
     def _loss(self, pixels, pf, pt, nf, nt, pix_pf, pix_pt, pix_nf, pix_nt):
         cfg = self.cfg
@@ -335,13 +333,19 @@ class JointCNNTrainer(JointOptimization):
         # by at most K steps, whose inputs stay allocated until they run
         losses, eps, ens = [], [], []
         K = max(self.cfg.inflight_steps, 1)
-        for prepared in batches:
-            loss, e_pos, e_neg = self.train_prepared(prepared)
-            losses.append(loss)
-            eps.append(e_pos.mean())
-            ens.append(e_neg.mean())
-            if len(losses) % K == 0:
-                losses[-K].item()
+        try:
+            for _ in range(nb):
+                with profiling.span("joint.wait_batch"):
+                    prepared = next(batches)
+                with profiling.span("joint.launch"):
+                    loss, e_pos, e_neg = self.train_prepared(prepared)
+                    losses.append(loss)
+                    eps.append(e_pos.mean())
+                    ens.append(e_neg.mean())
+                if len(losses) % K == 0:
+                    losses[-K].item()
+        finally:
+            batches.close()
         return {"loss": float(torch.stack(losses).sum()),
                 "e_pos_mean": float(torch.stack(eps).mean()),
                 "e_neg_mean": float(torch.stack(ens).mean())}
@@ -377,7 +381,8 @@ class JointCNNTrainer(JointOptimization):
         mesh each rank embeds its block over 'data' and the embeddings are
         gathered (the row count must divide over the data shards)."""
         self.featcnn.eval()
-        x = device_scale(self._put(shard_rows(pixels, self.mesh)))
+        x = device_scale(to_device(shard_rows(pixels, self.mesh),
+                                   self.device))
         emb = self.featcnn(x.permute(0, 3, 1, 2))
         if self.mesh is None:
             return emb

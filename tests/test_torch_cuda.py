@@ -6,6 +6,8 @@ it runs on a machine with torch alone:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -568,3 +570,37 @@ def test_k3_tiles_on_a_mesh_equal_the_whole(gen, tmp_path):
         np.testing.assert_array_equal(r["E"], whole)
         assert r["counts"]["pairwise_order"] == 1
         assert r["counts"]["pairwise_order_exact_d"] == 1
+
+
+def test_batch_norm_spans_time_within_the_steps_wall_clock(gen):
+    """Under a profiler the BatchNorm epilogues' device spans time their
+    passes by event pairs: 53 + 53 a ResNet-50 step, one optimizer span,
+    and together no more than the synchronised wall-clock of the steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig, ClassifierTrainer)
+    from learning_embeddings_tpu_torch.utils import profiling
+
+    lm = toy_labelmap(2, 3)
+    tr = ClassifierTrainer(lm, ClassifierConfig(
+        backbone="resnet50", image_size=128, batch_size=16, device="cuda"))
+    b = tr.put_batch(*_cls_batch(lm, 16, 128, 0))
+    tr.train_step(tr.state, *b)
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tr.train_step(tr.state, *b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    got = {n: [profiling.device_ms(r) for r in profiling.spans(n)]
+           for n in ("bn.fwd_epilogue", "bn.bwd_epilogue",
+                     "classifier.optimizer")}
+    assert [len(v) for v in got.values()] == [3 * 53, 3 * 53, 3]
+    assert all(ms is not None and ms > 0 for v in got.values() for ms in v)
+    assert sum(got["bn.fwd_epilogue"]) + sum(got["bn.bwd_epilogue"]) \
+        <= wall_ms
+    profiling.clear_spans()
