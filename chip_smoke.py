@@ -18,7 +18,11 @@ and prints no result line):
               shapes of ResNet-50@448 (R × batch) and one ragged shape, on
               integer-valued bf16 inputs (the sums are exact in f32: no
               difference is allowed) and on normal bf16 inputs
-              (|kernel − plain| ≤ 1e-5·Σ|terms| + 1e-6);
+              (|kernel − plain| ≤ 1e-5·Σ|terms| + 1e-6); bn_dx (Triton)
+              at the same shapes against _dx_plain (one bf16 ulp beyond
+              the f32 rounding of its terms), timed beside its byte bound,
+              _dx_plain and torch.batch_norm_backward_elemt (the library
+              yardstick; the port never calls it);
             - pairwise_order (CUDA C++, two kernels chosen by D: exact_d
               for 1 ≤ D ≤ 16, generic past it) at the three (M, N, D)
               shapes of the joint eval, the same at ETHEC's 723 labels,
@@ -266,10 +270,12 @@ RESNET18_32_BN = {(256, 64): 1, (64, 64): 4, (16, 128): 5, (4, 256): 5,
 RAGGED = (12345, 100)
 KERNEL_SRC = {"bn_stats": "learning_embeddings_tpu_torch/ops/bn_triton.py",
               "bn_corr": "learning_embeddings_tpu_torch/ops/bn_triton.py",
+              "bn_dx": "learning_embeddings_tpu_torch/ops/bn_triton.py",
               "pairwise_order":
                   "learning_embeddings_tpu_torch/csrc/pairwise_order.cu"}
 TPU_KERNELS = {"bn_stats": "learning_embeddings_tpu/ops/bn_pallas.py:52",
                "bn_corr": "learning_embeddings_tpu/ops/bn_pallas.py:64",
+               "bn_dx": None,
                "pairwise_order":
                    "learning_embeddings_tpu/geometry/pairwise.py:46"}
 #: sizes of the ETHEC val and test splits: the joint eval's image counts
@@ -449,6 +455,90 @@ def check_reduction(name, kernel_fn, plain_fn, library_fn, R, C, n_in, gen,
     return err, times
 
 
+def _ulp(v, dtype):
+    """One unit in the last place of |v| in `dtype` (bf16 or f32)."""
+    import torch
+
+    bits = {torch.bfloat16: 7, torch.float32: 23}[dtype]
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v.abs())[1] - 1 - bits)
+
+
+def check_dx(R, C, gen, dtype=None):
+    """bn_dx against _dx_plain on normal inputs of `dtype` (by default
+    bf16), the plain route with the statistics and sums of the data: at
+    most one ulp of dx's dtype beyond 2^-21 of the magnitude of the terms
+    it sums (Triton's FMAs and its order of the per-channel arithmetic).
+    Returns the max abs error and the device times of the kernel,
+    _dx_plain and torch.batch_norm_backward_elemt over a channels_last
+    view (R taken as one image of H·W rows), and the kernel's eager
+    time."""
+    import torch
+
+    from learning_embeddings_tpu_torch.ops import bn, bn_triton
+
+    dtype = dtype or torch.bfloat16
+
+    def inputs():
+        x = (0.5 + 1.5 * torch.randn((R, C), device=DEV, generator=gen)) \
+            .to(dtype)
+        dy = torch.randn((R, C), device=DEV, generator=gen).to(dtype)
+        s, q = bn._stats_plain(x)
+        mean = s / R
+        inv = torch.rsqrt(torch.clamp_min(q / R - mean * mean, 0) + 1e-5)
+        scale = 1 + 0.2 * torch.randn(C, device=DEV, generator=gen)
+        sdy, sdyx = bn._corr_plain(dy, x)
+        return dy, x, scale, mean, inv, sdy, sdyx, sdy, sdyx
+
+    args = inputs()
+    dy, x, scale, mean, inv, sdy, sdyx = args[:7]
+    got, _ = bn_triton.bn_dx(*args, R, R)
+    want, _ = bn._dx_plain(*args, R, R)
+    g = (scale * inv).abs()
+    terms = (dy.float().abs() * g + (g * sdy / R).abs()
+             + (x.float() - mean).abs() * g * inv * inv
+             * (sdyx.abs() + (mean * sdy).abs()) / R)
+    diff = (got.float() - want.float()).abs()
+    tol = _ulp(torch.maximum(got.float().abs(), want.float().abs()), dtype) \
+        + 2.0 ** -21 * terms
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"bn_dx {(R, C)}: kernel and plain version "
+                             f"differ by {diff.max().item()} beyond one ulp")
+    err = diff.max().item()
+    del got, want, terms, diff, tol
+    count = torch.tensor([R], device=DEV, dtype=torch.int32)
+
+    def kernel(dy, x, out, v, _):
+        return bn_triton.bn_dx(dy, x, *v, R, R, out=out)
+
+    def plain(dy, x, out, v, _):
+        return bn._dx_plain(dy, x, *v, R, R, out=out)
+
+    def library(dy, x, out, v, sum_dy_xmu):
+        scale, mean, inv, sdy = v[:4]
+        return torch.batch_norm_backward_elemt(
+            _as4d(dy, R), _as4d(x, R), mean, inv, scale, sdy, sum_dy_xmu,
+            count)
+
+    # sum_dy_xmu = Σdy·(x − mean) = Σdy·x − mean·Σdy, made off the clock
+    copies = [(a[0], a[1], torch.empty_like(a[1]), a[2:],
+               a[6] - a[3] * a[5])
+              for a in [args] + [inputs() for _ in range(
+                  n_copies(3 * R * C * dtype.itemsize) - 1)]]
+    times = {"ms": device_ms(kernel, copies),
+             "plain_ms": device_ms(plain, copies),
+             "library_ms": device_ms(library, copies),
+             "eager_ms": cuda_ms(kernel, copies)}
+    return err, times
+
+
+def dx_bound_ms(R, C, dtype=None):
+    """Least time of bn_dx: dy and x (by default bf16) read once, dx
+    written once, and its eight (C,) f32 vectors, over the HBM rate (its
+    ~8 f32 operations an element take a tenth of that)."""
+    itemsize = 2 if dtype is None else dtype.itemsize
+    return 1e3 * (3 * R * C * itemsize + 8 * C * 4) / HBM_BYTES_PER_S
+
+
 def _as4d(x2, R):
     """(R·B, C) rows of images with R = H·W rows each → the NCHW
     channels_last tensor they view (H·W as square as R allows)."""
@@ -494,6 +584,9 @@ def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels",
                                          gen, dtype)
             row[name] = {"max_abs_err": err, **times,
                          "bound_ms": bound_ms(Rb, C, n_in, dtype)}
+        err, times = check_dx(Rb, C, gen, dtype)
+        row["bn_dx"] = {"max_abs_err": err, **times,
+                        "bound_ms": dx_bound_ms(Rb, C, dtype)}
         rows.append(row)
         log(f"[{tag}] R={Rb:>8} C={C:>4} x{mult:<2} " + " | ".join(
             f"{n} {row[n]['ms'] * 1e3:7.1f}us (eager "
@@ -501,7 +594,7 @@ def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels",
             f"{row[n]['plain_ms'] * 1e3:7.1f}, library "
             f"{row[n]['library_ms'] * 1e3:7.1f}, bound "
             f"{row[n]['bound_ms'] * 1e3:6.1f}) err {row[n]['max_abs_err']:.3g}"
-            for n in ("bn_stats", "bn_corr")))
+            for n in ("bn_stats", "bn_corr", "bn_dx")))
     return rows
 
 
@@ -992,7 +1085,8 @@ def slice_phase(labelmap, batch, steps=3, warmup=2):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"bn_stats": bn_triton.STATS_LAUNCHES,
-                "bn_corr": bn_triton.CORR_LAUNCHES}
+                "bn_corr": bn_triton.CORR_LAUNCHES,
+                "bn_dx": bn_triton.DX_LAUNCHES}
     copies = bn.CHANNELS_LAST_COPIES
 
     want = sorted((R * batch, C) for (R, C), n in RESNET50_448_BN.items()
@@ -1024,7 +1118,7 @@ def slice_phase(labelmap, batch, steps=3, warmup=2):
     log(f"[slice] resnet50@448 batch {batch}, {labelmap.n_classes} classes "
         f"{tuple(labelmap.levels)}: losses {losses}")
     log(f"[slice] launches {launches} over {n_steps} steps "
-        f"(53 + 53 per step), channels_last copies {copies}")
+        f"(53 + 53 + 53 per step), channels_last copies {copies}")
     log(f"[slice] {result['ms_per_step']:.2f} ms/step, "
         f"{result['images_per_s']:.1f} images/s, peak memory "
         f"{result['max_memory_allocated_gib']:.2f} GiB")
@@ -1114,7 +1208,7 @@ def _reset_counts():
     from learning_embeddings_tpu_torch.ops import pairwise_order as k3
 
     bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
-    bn_triton.STATS_ROUNDED_LAUNCHES = 0
+    bn_triton.STATS_ROUNDED_LAUNCHES = bn_triton.DX_LAUNCHES = 0
     k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0
     bn.CHANNELS_LAST_COPIES = 0
 
@@ -1126,6 +1220,7 @@ def _read_counts():
     return {"bn_stats": bn_triton.STATS_LAUNCHES,
             "bn_stats_rounded": bn_triton.STATS_ROUNDED_LAUNCHES,
             "bn_corr": bn_triton.CORR_LAUNCHES,
+            "bn_dx": bn_triton.DX_LAUNCHES,
             "pairwise_order": k3.LAUNCHES,
             "pairwise_order_exact_d": k3.EXACT_D_LAUNCHES,
             "pairwise_order_generic": k3.GENERIC_LAUNCHES}
@@ -4077,6 +4172,25 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                 "max_abs_err": max(r["max_abs_err"] for r in bf16sq),
                 "launches_by_path": by_path("bn_stats_rounded"),
                 "shapes": shape_rows(bf16sq)}
+    tot = {k: sum(r["bn_dx"][k] * r["layers"] for r in bn_rows)
+           for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms")}
+    kernels.append({
+        "name": "bn_dx", "route": "triton", "source": KERNEL_SRC["bn_dx"],
+        "replaces": TPU_KERNELS["bn_dx"],
+        "replaces_note": "no TPU kernel: the JAX package leaves dx to XLA",
+        "launches": slice_result["launches"]["bn_dx"],
+        "max_abs_err": max(r["bn_dx"]["max_abs_err"]
+                           for rows in [bn_rows, r18_rows, vgg]
+                           + list(mesh_rows.values()) for r in rows),
+        **tot, "bound_by": "bytes",
+        "library_note": "torch.batch_norm_backward_elemt, a yardstick the "
+                        "port never calls",
+        "launches_by_path": by_path("bn_dx"),
+        "shapes": [{"R": r["R"], "C": r["C"], "layers": r["layers"],
+                    **{k: r["bn_dx"][k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "library_ms",
+                        "bound_ms")}} for r in bn_rows],
+    })
     path = [r for r in k3_result["shapes"] if r["on_path"]]
     tot = {k: sum(r[k] for r in path)
            for k in ("ms", "generic_ms", "eager_ms", "plain_ms", "bound_ms")}

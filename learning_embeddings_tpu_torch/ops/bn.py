@@ -7,11 +7,11 @@ Three routes, chosen by ``make_norm`` with the JAX package's precedence
 first, then ``bn_impl``.
 
 * ``FusedBatchNorm`` (``bn_impl='pallas'``): the two per-channel
-  reductions go through ``_stats`` / ``_corr``: on a CUDA tensor they
-  launch the Triton kernels of ``ops/bn_triton.py`` (always; there is no
-  fallback on the card), on a CPU tensor they run the plain PyTorch
-  versions below. The normalisation and the dx expression stay plain
-  elementwise PyTorch.
+  reductions go through ``_stats`` / ``_corr``, and the backward's dx and
+  scale gradient through ``_dx``: on a CUDA tensor they launch the Triton
+  kernels of ``ops/bn_triton.py`` (always; there is no fallback on the
+  card), on a CPU tensor they run the plain PyTorch versions below. The
+  normalisation stays plain elementwise PyTorch.
 * ``GhostBatchNorm`` (``bn_stats_rows`` > 0 or ``bn_stats_dtype`` bf16):
   the statistics come from the first ``stats_rows`` batch rows only (all
   rows for 0 or less), a contiguous row prefix of the (R, C) view that
@@ -20,7 +20,8 @@ first, then ``bn_impl``.
   bf16 array does. Its gradient is the JAX package's autodiff written
   out: ``_corr`` over all R rows (every row's dy reaches the statistics
   through a and b), the mean and variance terms back into the prefix rows
-  only, and none through ``max(var, 0)`` where it clamps.
+  only, and none through ``max(var, 0)`` where it clamps. Its dx is the
+  same ``_dx`` as the fused route's, with a row limit.
 * ``FlaxBatchNorm`` (``bn_impl='flax'``): the library's train-mode
   BatchNorm (``F.batch_norm``, whose kernels PyTorch picks: ATen's
   channels_last ones for the bf16 trunk on the card), as the JAX package's
@@ -36,7 +37,7 @@ Same function as the JAX package computes:
   it on every route, unlike ``nn.BatchNorm2d``'s unbiased one;
 * the forward folds into a = scale·rsqrt(var + eps), b = bias − mean·a in
   f32, then y = x·a + b in the activation dtype;
-* the backward computes dx in f32 and casts it to x's dtype;
+* the backward computes dx in f32 and rounds it once to x's dtype;
 * flax momentum: running = 0.9·running + 0.1·batch; eps 1e-5.
 
 Layout: channels sit at dim 1 (PyTorch's NCHW order), and the kernels read
@@ -161,6 +162,58 @@ def _per_channel(v, like):
     return v.view((1, -1) + (1,) * (like.ndim - 2))
 
 
+def _dx_plain(dy2, x2, scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own, n,
+              r_pre, d=None, round_x=False, out=None):
+    """``bn_triton.bn_dx`` in plain PyTorch, term by term: the CPU's path
+    and the kernel's oracle. With g = scale·inv,
+    c0 = −g·Σdy/n and c1 = −g·inv²·(Σdy·x − mean·Σdy)·slope/n,
+
+        dx = dy·g + [row < r_pre]·(c0 + (x_r − mean)·c1)
+
+    in f32, rounded once to `out`'s dtype (x2's by default). The plain
+    route is r_pre = n = R and slope 1: g·(dy − mean_dy − x̂·mean_dyxh)
+    regrouped, the mean subtracted before any scaling. The ghost route
+    (`d` given): n prefix rows, r_pre of them on this rank, the slope of
+    max(d, 0) and x_r = x rounded to bf16 with `round_x`; these are the
+    JAX package's dvar and dmean terms, dmean/n + x_r·2dvar/n. Returns
+    (dx2, dscale), dscale = (Σdy·x − mean·Σdy)·inv over this rank's own
+    sums."""
+    g = scale.float() * inv
+    da = sdyx - mean * sdy
+    if d is not None:   # d max(d, 0)/dd as jnp.maximum's: 1, ½ at 0, 0 below
+        da = da * ((d > 0).float() + 0.5 * (d == 0).float())
+    c0 = -(g * sdy) / n
+    c1 = -(g * inv * inv * da) / n
+    dx = dy2.float() * g
+    xs = x2[:r_pre]
+    if round_x:
+        xs = xs.to(torch.bfloat16)
+    dx[:r_pre] += c0 + (xs.float() - mean) * c1
+    out = torch.empty_like(x2) if out is None else out
+    out.copy_(dx)
+    return out, (sdyx_own - mean * sdy_own) * inv
+
+
+def _dx(dy, x, scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own, n, r_pre,
+        d=None, round_x=False):
+    """The backward after K2's sums (the statistics' rows: sdy, sdyx;
+    this rank's: sdy_own, sdyx_own): dx in x's dtype and layout, and the
+    scale's and bias's gradients from this rank's rows. The kernel on
+    the card, ``_dx_plain`` on the CPU (arguments as theirs). Run in the
+    span "bn.bwd_epilogue"."""
+    dx = torch.empty_like(x)
+    args = (_rows(dy), _rows(x), scale, mean, inv, sdy, sdyx, sdy_own,
+            sdyx_own, n, r_pre, d, round_x)
+    if x.is_cuda:
+        from . import bn_triton
+        _, dscale = bn_triton.bn_dx(*args, out=_rows(dx))
+    elif x.device.type == "cpu":
+        _, dscale = _dx_plain(*args, out=_rows(dx))
+    else:
+        raise ValueError(f"no BatchNorm dx path for {x.device}")
+    return dx, dscale.to(scale.dtype), sdy_own.to(scale.dtype)
+
+
 def _fwd_epilogue(x, scale, bias, eps, s, q, n, round_bf16=False):
     """The forward after K1's sums s = Σx, q = Σx² over n rows: the
     statistics (each mean rounded to bf16 with `round_bf16`), the biased
@@ -179,47 +232,6 @@ def _fwd_epilogue(x, scale, bias, eps, s, q, n, round_bf16=False):
     y = torch.addcmul(_per_channel(b.to(x.dtype), x), x,
                       _per_channel(a.to(x.dtype), x))
     return y, mean, var, inv, d
-
-
-def _bwd_epilogue(x, dy, scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own, R):
-    """The backward after K2's sums (global: sdy, sdyx; this rank's:
-    sdy_own, sdyx_own) over R rows: dx in f32, cast to x's dtype, and the
-    scale's and bias's gradients from this rank's rows. Run in the span
-    "bn.bwd_epilogue"."""
-    # Σ dy·x̂ = (Σ dy·x − mean·Σ dy) · inv
-    sdyxh = (sdyx - mean * sdy) * inv
-    g = scale.float() * inv
-    mean_dy = sdy / R
-    mean_dyxh = sdyxh / R
-    xhat = (x.float() - _per_channel(mean, x)).mul_(_per_channel(inv, x))
-    dx = (dy.to(torch.float32, copy=True)
-          .sub_(_per_channel(mean_dy, x))
-          .sub_(xhat.mul_(_per_channel(mean_dyxh, x)))
-          .mul_(_per_channel(g, x)))
-    dscale = (sdyx_own - mean * sdy_own) * inv
-    return dx.to(x.dtype), dscale.to(scale.dtype), sdy_own.to(scale.dtype)
-
-
-def _ghost_bwd_epilogue(x, dy, scale, mean, inv, d, sdy, sdyx, sdy_own,
-                        sdyx_own, rows, n, round_bf16):
-    """``_bwd_epilogue`` of the ghost statistics (of the first `rows`
-    images, n rows of the global batch): the JAX package's autodiff
-    written out. Run in the span "bn.bwd_epilogue"."""
-    g = scale.float() * inv
-    # through b = bias − mean·a: da = Σdy·x − mean·Σdy
-    da = sdyx - mean * sdy
-    # d max(d, 0)/dd as jnp.maximum's: 1 above 0, ½ at 0, 0 below
-    slope = (d > 0).float() + 0.5 * (d == 0).float()
-    dvar = -0.5 * inv ** 3 * scale.float() * da * slope
-    dmean = -sdy * g - 2 * mean * dvar
-    dx = dy.to(torch.float32, copy=True).mul_(_per_channel(g, x))
-    xs = x[:rows]
-    if round_bf16:
-        xs = xs.to(torch.bfloat16)
-    dx[:rows].add_(_per_channel(dmean / n, x)).add_(
-        torch.mul(xs.float(), _per_channel(2 * dvar / n, x)))
-    dscale = (sdyx_own - mean * sdy_own) * inv
-    return dx.to(x.dtype), dscale.to(scale.dtype), sdy_own.to(scale.dtype)
 
 
 class _BatchNormTrain(torch.autograd.Function):
@@ -243,12 +255,13 @@ class _BatchNormTrain(torch.autograd.Function):
         # the statistics are consumed without gradient (running averages)
         x, scale, mean, inv = ctx.saved_tensors
         dy = _channel_minor(dy)
-        R = x.numel() // x.shape[1] * group_size(ctx.group)
+        rows = x.numel() // x.shape[1]
         sdy_own, sdyx_own = _corr(_rows(dy), _rows(x))
         sdy, sdyx = _summed(ctx.group, "bn_corr", sdy_own, sdyx_own)
         return profiling.in_device_span(
-            "bn.bwd_epilogue", x.device, _bwd_epilogue, x, dy, scale, mean,
-            inv, sdy, sdyx, sdy_own, sdyx_own, R) + (None, None)
+            "bn.bwd_epilogue", x.device, _dx, dy, x, scale, mean, inv, sdy,
+            sdyx, sdy_own, sdyx_own, rows * group_size(ctx.group),
+            rows) + (None, None)
 
 
 def batch_norm_train(x, scale, bias, eps: float = 1e-5, group=None):
@@ -288,7 +301,7 @@ class _GhostBatchNormTrain(torch.autograd.Function):
             "bn.fwd_epilogue", x.device, _fwd_epilogue, x, scale, bias, eps,
             s, q, n, round_bf16)
         ctx.save_for_backward(x, scale, mean, inv, d)
-        ctx.rows, ctx.n, ctx.round_bf16 = rows, n, round_bf16
+        ctx.r_pre, ctx.n, ctx.round_bf16 = xs2.shape[0], n, round_bf16
         ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -300,8 +313,8 @@ class _GhostBatchNormTrain(torch.autograd.Function):
         sdy_own, sdyx_own = _corr(_rows(dy), _rows(x))    # over all R rows
         sdy, sdyx = _summed(ctx.group, "bn_corr", sdy_own, sdyx_own)
         return profiling.in_device_span(
-            "bn.bwd_epilogue", x.device, _ghost_bwd_epilogue, x, dy, scale,
-            mean, inv, d, sdy, sdyx, sdy_own, sdyx_own, ctx.rows, ctx.n,
+            "bn.bwd_epilogue", x.device, _dx, dy, x, scale, mean, inv, sdy,
+            sdyx, sdy_own, sdyx_own, ctx.n, ctx.r_pre, d,
             ctx.round_bf16) + (None,) * 6
 
 

@@ -1,12 +1,19 @@
-"""Hand-written Triton kernels for the train-mode BatchNorm reductions.
+"""Hand-written Triton kernels for the train-mode BatchNorm.
 
-They replace the two Pallas kernels of the JAX package
+Two replace the Pallas kernels of the JAX package
 (``learning_embeddings_tpu/ops/bn_pallas.py``):
 
 * ``bn_stats``  ← ``_stats_kernel`` (bn_pallas.py:52-61, driven by
   ``_stats``, 81-99):   x (R, C)      → Σx, Σx²       (BN forward)
 * ``bn_corr``   ← ``_corr_kernel``  (bn_pallas.py:64-74, driven by
   ``_corr``, 102-121):  dy, x (R, C)  → Σdy, Σ(dy·x)   (BN backward)
+
+The third, ``bn_dx`` (``bn_dx_kernel``: dy, x (R, C) and K2's sums → dx,
+and the scale's gradient), replaces no TPU kernel: the JAX package leaves
+dx to XLA (``_bn_bwd_vjp``, bn_pallas.py:150-170), which fuses its
+elementwise passes. Eager PyTorch does not, and the same dx written as
+plain tensor code made ~9 f32 passes over every activation (~70 bytes an
+element). See "dx" below.
 
 What bounds them on an H100: HBM bytes. Each is a column reduction over a
 row-major, channel-minor (R = N·H·W, C) matrix with 2-3 flops per element
@@ -32,8 +39,21 @@ Design, and how it differs from the TPU kernels:
   the smallest ResNet-50@448 shape (R = 196·B, C = 2048) as for the
   largest (R = 50176·B, C = 64).
 
+dx: what bounds ``bn_dx`` is HBM bytes too: dy and x read once and dx
+written once, 6 bytes an element in bf16, against ~8 f32 operations. Every
+per-channel coefficient (from the (C,) vectors of the forward and K2) is
+computed in each program's prologue, for its own channel block, so the
+backward epilogue is one launch; dx is a streaming pass over the same 2-D
+grid of channel blocks × row splits (no accumulator is carried, so its
+tiles are larger), computed in f32 registers and rounded once to x's
+dtype at the store. One expression serves the plain and the ghost routes
+(``ops/bn.py::_dx_plain`` spells it out); the row split 0 programs also
+write the scale's gradient. It writes a separate output, never into dy
+(autograd hands the same gradient to both branches of a residual add).
+
 Not yet done (later work, with its times in PERF.md): TMA bulk loads,
-persistent programs, fusing the normalisation and the dx epilogue.
+persistent programs, fusing the normalisation into the forward's next
+elementwise passes.
 
 ``triton`` is imported, and the kernels are built, on the first launch
 only: this module imports on a host with no Triton. The compiled kernels
@@ -46,8 +66,9 @@ each x² is rounded to bf16 before it is summed, as ``xs * xs`` rounds in
 a bf16 array, through a ``constexpr`` switch of the same kernel.
 
 Each wrapper adds one to its launch count (``STATS_LAUNCHES``,
-``CORR_LAUNCHES``) where it launches its kernel, and nowhere else; a
-launch of the rounding variant also counts in ``STATS_ROUNDED_LAUNCHES``.
+``CORR_LAUNCHES``, ``DX_LAUNCHES``) where it launches its kernel, and
+nowhere else; a launch of the rounding variant also counts in
+``STATS_ROUNDED_LAUNCHES``.
 """
 
 import contextlib
@@ -61,12 +82,14 @@ os.environ.setdefault(
     os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), ".torch_kernels", "triton"))
 
-__all__ = ["bn_stats", "bn_corr", "STATS_LAUNCHES", "CORR_LAUNCHES",
-           "STATS_ROUNDED_LAUNCHES"]
+__all__ = ["bn_stats", "bn_corr", "bn_dx", "STATS_LAUNCHES",
+           "CORR_LAUNCHES", "DX_LAUNCHES", "STATS_ROUNDED_LAUNCHES"]
 
-#: launches of the bn_stats / bn_corr kernels since import (or last reset)
+#: launches of the bn_stats / bn_corr / bn_dx kernels since import (or
+#: last reset)
 STATS_LAUNCHES = 0
 CORR_LAUNCHES = 0
+DX_LAUNCHES = 0
 #: the bn_stats launches with round_sq=True (also counted in STATS_LAUNCHES)
 STATS_ROUNDED_LAUNCHES = 0
 
@@ -76,13 +99,17 @@ _TILE_ELEMS = 4096
 _NUM_WARPS = 4
 #: programs per SM the row splits aim for
 _PROGRAMS_PER_SM = 4
+#: bn_dx's tiles and programs per SM: it carries no accumulator
+_DX_TILE_ELEMS = 8192
+_DX_NUM_WARPS = 8
+_DX_PROGRAMS_PER_SM = 16
 
 _KERNELS = None
 tl = None   # triton.language, bound on the first launch (see _kernels)
 
 
 def _kernels():
-    """Build (once) and return the two jitted kernels."""
+    """Build (once) and return the three jitted kernels."""
     global _KERNELS, tl
     if _KERNELS is not None:
         return _KERNELS
@@ -138,20 +165,68 @@ def _kernels():
         tl.store(part_ptr + n_splits * C + out, tl.sum(acc_p, axis=0),
                  mask=cmask)
 
-    _KERNELS = (bn_stats_kernel, bn_corr_kernel)
+    # R and R_pre change with the batch and the ghost prefix: not
+    # specialised on, so one build serves every row count
+    @triton.jit(do_not_specialize=["R", "R_pre"])
+    def bn_dx_kernel(dy_ptr, x_ptr, dx_ptr, scale_ptr, mean_ptr, inv_ptr,
+                     sdy_ptr, sdyx_ptr, sdy_own_ptr, sdyx_own_ptr, d_ptr,
+                     dscale_ptr, R, C, R_pre, n,
+                     BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
+                     GHOST: tl.constexpr, ROUND_X: tl.constexpr):
+        pid_c = tl.program_id(0)
+        pid_s = tl.program_id(1)
+        n_splits = tl.num_programs(1)
+        cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        # prologue: this channel block's coefficients, as _dx_plain's
+        mean = tl.load(mean_ptr + cols, mask=cmask, other=0.0)
+        inv = tl.load(inv_ptr + cols, mask=cmask, other=0.0)
+        sdy = tl.load(sdy_ptr + cols, mask=cmask, other=0.0)
+        sdyx = tl.load(sdyx_ptr + cols, mask=cmask, other=0.0)
+        g = tl.load(scale_ptr + cols, mask=cmask, other=0.0) \
+            .to(tl.float32) * inv
+        da = sdyx - mean * sdy
+        if GHOST:   # d max(d, 0)/dd as jnp.maximum's: 1, ½ at 0, 0 below
+            d = tl.load(d_ptr + cols, mask=cmask, other=0.0)
+            da = da * tl.where(d > 0, 1.0, tl.where(d == 0, 0.5, 0.0))
+        c0 = -(g * sdy) / n
+        c1 = -(g * inv * inv * da) / n
+        if pid_s == 0:
+            sdy_o = tl.load(sdy_own_ptr + cols, mask=cmask, other=0.0)
+            sdyx_o = tl.load(sdyx_own_ptr + cols, mask=cmask, other=0.0)
+            tl.store(dscale_ptr + cols, (sdyx_o - mean * sdy_o) * inv,
+                     mask=cmask)
+        for r0 in range(pid_s * BLOCK_R, R, n_splits * BLOCK_R):
+            rows = r0 + tl.arange(0, BLOCK_R)
+            mask = (rows < R)[:, None] & cmask[None, :]
+            pre = mask & (rows < R_pre)[:, None]
+            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
+            dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            x = tl.load(x_ptr + offs, mask=pre, other=0.0)
+            if ROUND_X:
+                xf = x.to(tl.bfloat16).to(tl.float32)
+            else:
+                xf = x.to(tl.float32)
+            t = c0[None, :] + (xf - mean[None, :]) * c1[None, :]
+            dx = dy * g[None, :] + tl.where(pre, t, 0.0)
+            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty),
+                     mask=mask)
+
+    _KERNELS = (bn_stats_kernel, bn_corr_kernel, bn_dx_kernel)
     return _KERNELS
 
 
-def launch_shape(R: int, C: int, n_sms: int):
+def launch_shape(R: int, C: int, n_sms: int, tile_elems: int = _TILE_ELEMS,
+                 programs_per_sm: int = _PROGRAMS_PER_SM):
     """(BLOCK_R, BLOCK_C, n_splits) for an (R, C) input on a card with
-    `n_sms` SMs: channel blocks of up to 128 lanes, 4096-element tiles, and
-    enough row splits for `_PROGRAMS_PER_SM` programs per SM (never more
-    splits than row blocks)."""
+    `n_sms` SMs: channel blocks of up to 128 lanes, `tile_elems`-element
+    tiles, and enough row splits for `programs_per_sm` programs per SM
+    (never more splits than row blocks)."""
     block_c = min(128, max(16, 1 << (C - 1).bit_length()))
-    block_r = _TILE_ELEMS // block_c
+    block_r = tile_elems // block_c
     n_cblocks = -(-C // block_c)
     row_blocks = -(-R // block_r)
-    want = -(-(_PROGRAMS_PER_SM * n_sms) // n_cblocks)
+    want = -(-(programs_per_sm * n_sms) // n_cblocks)
     return block_r, block_c, max(1, min(row_blocks, want))
 
 
@@ -174,11 +249,19 @@ def _check(name: str, *ts: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=256)
-def _geometry(R: int, C: int, device_index: int):
+def _geometry(R: int, C: int, device_index: int, *tiling):
     n_sms = torch.cuda.get_device_properties(device_index) \
         .multi_processor_count
-    block_r, block_c, n_splits = launch_shape(R, C, n_sms)
+    block_r, block_c, n_splits = launch_shape(R, C, n_sms, *tiling)
     return block_r, block_c, n_splits, (-(-C // block_c), n_splits)
+
+
+def _on_device(dev: torch.device):
+    """Triton launches on the current device: switch only when it
+    differs."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _launch(kernel, name: str, *ts: torch.Tensor, **constexprs):
@@ -186,10 +269,7 @@ def _launch(kernel, name: str, *ts: torch.Tensor, **constexprs):
     dev = ts[0].device
     block_r, block_c, n_splits, grid = _geometry(R, C, dev.index)
     part = torch.empty((2, n_splits, C), device=dev, dtype=torch.float32)
-    # Triton launches on the current device: switch only when it differs
-    same = dev.index == torch.cuda.current_device()
-    guard = contextlib.nullcontext() if same else torch.cuda.device(dev)
-    with guard:
+    with _on_device(dev):
         kernel[grid](*ts, part, R, C, BLOCK_R=block_r, BLOCK_C=block_c,
                      num_warps=_NUM_WARPS, **constexprs)
     first, second = part.sum(dim=1)
@@ -200,7 +280,7 @@ def bn_stats(x2: torch.Tensor, round_sq: bool = False):
     """Σx and Σx² over the rows of a CUDA (R, C) matrix, in f32; with
     `round_sq` each x² is rounded to bf16 before the sum."""
     global STATS_LAUNCHES, STATS_ROUNDED_LAUNCHES
-    stats_kernel, _ = _kernels()
+    stats_kernel, _, _ = _kernels()
     out = _launch(stats_kernel, "bn_stats", x2, ROUND_SQ=bool(round_sq))
     STATS_LAUNCHES += 1
     STATS_ROUNDED_LAUNCHES += bool(round_sq)
@@ -210,7 +290,47 @@ def bn_stats(x2: torch.Tensor, round_sq: bool = False):
 def bn_corr(dy2: torch.Tensor, x2: torch.Tensor):
     """Σdy and Σ(dy·x) over the rows of two CUDA (R, C) matrices, in f32."""
     global CORR_LAUNCHES
-    _, corr_kernel = _kernels()
+    _, corr_kernel, _ = _kernels()
     out = _launch(corr_kernel, "bn_corr", dy2, x2)
     CORR_LAUNCHES += 1
     return out
+
+
+def bn_dx(dy2, x2, scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own, n,
+          r_pre, d=None, round_x=False, out=None):
+    """dx of the train-mode BatchNorm over CUDA (R, C) matrices dy2, x2,
+    and the scale's gradient: ``ops/bn.py::_dx_plain``'s arithmetic in
+    one launch. The (C,) f32 vectors: the forward's mean and inv (and d,
+    the variance before its clamp, on the ghost route), the sums over
+    the statistics' rows (sdy, sdyx) and over this rank's (sdy_own,
+    sdyx_own); n rows make the statistics, the first `r_pre` of these
+    the ghost route's mean and variance terms reach (x rounded to bf16
+    first with `round_x`). dx goes into `out` (a new tensor like x2 if
+    None), in its dtype. Returns (dx2, dscale)."""
+    global DX_LAUNCHES
+    out = torch.empty_like(x2) if out is None else out
+    R, C = _check("bn_dx", dy2, x2, out)
+    vectors = (scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own) + (
+        () if d is None else (d,))
+    for v in vectors:
+        if not (v.is_cuda and v.shape == (C,) and v.is_contiguous()):
+            raise ValueError(f"bn_dx: expected contiguous CUDA ({C},) "
+                             f"vectors, got {v.device} {tuple(v.shape)}")
+        if v is not scale and v.dtype != torch.float32:
+            raise ValueError(f"bn_dx: expected f32 per-channel sums and "
+                             f"statistics, got {v.dtype}")
+    if not 0 <= r_pre <= R:
+        raise ValueError(f"bn_dx: row limit {r_pre} outside [0, {R}]")
+    _, _, dx_kernel = _kernels()
+    dev = x2.device
+    block_r, block_c, _, grid = _geometry(
+        R, C, dev.index, _DX_TILE_ELEMS, _DX_PROGRAMS_PER_SM)
+    dscale = torch.empty(C, device=dev, dtype=torch.float32)
+    with _on_device(dev):
+        dx_kernel[grid](dy2, x2, out, scale, mean, inv, sdy, sdyx, sdy_own,
+                        sdyx_own, mean if d is None else d, dscale, R, C,
+                        int(r_pre), float(n), BLOCK_R=block_r,
+                        BLOCK_C=block_c, GHOST=d is not None,
+                        ROUND_X=bool(round_x), num_warps=_DX_NUM_WARPS)
+    DX_LAUNCHES += 1
+    return out, dscale

@@ -34,6 +34,7 @@ def counts() -> Dict[str, int]:
 
     return {"bn_stats": bn_triton.STATS_LAUNCHES,
             "bn_corr": bn_triton.CORR_LAUNCHES,
+            "bn_dx": bn_triton.DX_LAUNCHES,
             "pairwise_order": k3.LAUNCHES,
             "pairwise_order_exact_d": k3.EXACT_D_LAUNCHES,
             "channels_last_copies": bn.CHANNELS_LAST_COPIES,
@@ -45,7 +46,7 @@ def reset_counts() -> None:
     from ..ops import pairwise_order as k3
 
     bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
-    bn_triton.STATS_ROUNDED_LAUNCHES = 0
+    bn_triton.STATS_ROUNDED_LAUNCHES = bn_triton.DX_LAUNCHES = 0
     k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0
     bn.CHANNELS_LAST_COPIES = 0
     pmesh.COLLECTIVES.clear()

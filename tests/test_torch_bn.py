@@ -24,6 +24,11 @@ from learning_embeddings_tpu_torch.ops import batch_norm_train
 
 torch.set_num_threads(2)
 
+#: per-image (R, C) of the 12 BatchNorm shapes of ResNet-50@448
+RESNET50_448_BN = [(50176, 64), (12544, 64), (12544, 128), (12544, 256),
+                   (3136, 128), (3136, 256), (3136, 512), (784, 256),
+                   (784, 512), (784, 1024), (196, 512), (196, 2048)]
+
 
 def _nchw(x_nhwc):
     """NHWC numpy → NCHW torch view, channels_last in memory."""
@@ -192,10 +197,7 @@ def test_kernel_launch_shape_fills_the_card_for_resnet50_shapes():
     shapes of ResNet-50@448 at batch 32, plus a ragged one, on 132 SMs."""
     from learning_embeddings_tpu_torch.ops.bn_triton import launch_shape
 
-    shapes = [(50176, 64), (12544, 64), (12544, 128), (12544, 256),
-              (3136, 128), (3136, 256), (3136, 512), (784, 256),
-              (784, 512), (784, 1024), (196, 512), (196, 2048)]
-    for R, C in [(r * 32, c) for r, c in shapes] + [(12345, 100)]:
+    for R, C in [(r * 32, c) for r, c in RESNET50_448_BN] + [(12345, 100)]:
         block_r, block_c, n_splits = launch_shape(R, C, 132)
         assert block_r * block_c == 4096
         assert block_c & (block_c - 1) == 0 and block_c >= min(C, 128)
@@ -204,3 +206,136 @@ def test_kernel_launch_shape_fills_the_card_for_resnet50_shapes():
         assert n_cblocks * n_splits >= min(4 * 132, n_cblocks * row_blocks)
         if (R, C) != (12345, 100):   # every ResNet-50 shape fills the card
             assert n_cblocks * n_splits >= 4 * 132
+
+
+def _old_bwd_epilogue(x, dy, scale, mean, inv, sdy, sdyx, R):
+    """The plain route's f32 dx passes as ops/bn.py wrote them before the
+    dx kernel: the oracle of `_dx`."""
+    pc = bn._per_channel
+    sdyxh = (sdyx - mean * sdy) * inv
+    g = scale.float() * inv
+    xhat = (x.float() - pc(mean, x)).mul_(pc(inv, x))
+    return (dy.to(torch.float32, copy=True).sub_(pc(sdy / R, x))
+            .sub_(xhat.mul_(pc(sdyxh / R, x))).mul_(pc(g, x)))
+
+
+def _old_ghost_bwd_epilogue(x, dy, scale, mean, inv, d, sdy, sdyx, rows, n,
+                            round_bf16):
+    """The ghost route's f32 dx passes as ops/bn.py wrote them before the
+    dx kernel (the JAX package's autodiff written out)."""
+    pc = bn._per_channel
+    g = scale.float() * inv
+    da = sdyx - mean * sdy
+    slope = (d > 0).float() + 0.5 * (d == 0).float()
+    dvar = -0.5 * inv ** 3 * scale.float() * da * slope
+    dmean = -sdy * g - 2 * mean * dvar
+    dx = dy.to(torch.float32, copy=True).mul_(pc(g, x))
+    xs = x[:rows]
+    if round_bf16:
+        xs = xs.to(torch.bfloat16)
+    dx[:rows].add_(pc(dmean / n, x)).add_(
+        torch.mul(xs.float(), pc(2 * dvar / n, x)))
+    return dx
+
+
+@pytest.mark.parametrize("route", ["plain", "plain_mesh", "ghost",
+                                   "ghost_bf16_x", "ghost_mesh"])
+def test_dx_reproduces_the_old_f32_epilogues(route):
+    """`_dx` (the CPU's `_dx_plain`) against the f32 expressions it
+    replaced, on seeded f32 inputs: the plain and the ghost routes, the
+    latter with a row prefix, x rounded to bf16 and channels whose
+    variance is clamped (slope 0) or exactly 0 (slope ½); on a mesh dx
+    takes the global sums and the scale's and bias's gradients this
+    rank's own. Both sides round in f32 in another order: 1e-5 of the
+    magnitude of the terms each element sums."""
+    rng = np.random.RandomState(11)
+    N, C, H, W = 6, 8, 3, 5
+    x = _nchw((0.5 + 1.5 * rng.randn(N, H, W, C)).astype(np.float32))
+    dy = _nchw(rng.randn(N, H, W, C).astype(np.float32))
+    scale = torch.from_numpy((1 + 0.2 * rng.randn(C)).astype(np.float32))
+    mesh = route.endswith("_mesh")
+    ghost = route.startswith("ghost")
+    images = 4 if ghost else N          # the rows the statistics cover
+    x2, dy2 = bn._rows(x), bn._rows(dy)
+    per_img = H * W
+    s, q = bn._stats_plain(x2[:images * per_img])
+    sdy_own, sdyx_own = bn._corr_plain(dy2, x2)
+    parts = 2 if mesh else 1            # another rank's rows, added
+    sdy = sdy_own + (0.7 * sdy_own + 0.1 if mesh else 0)
+    sdyx = sdyx_own + (-0.4 * sdyx_own + 0.2 if mesh else 0)
+    n = images * per_img * parts
+    mean, msq = s / (images * per_img), q / (images * per_img)
+    d = msq - mean * mean
+    if ghost:
+        d[0], d[1] = -1e-3, 0.0         # clamped, and at the clamp
+    inv = torch.rsqrt(torch.clamp_min(d, 0.0) + 1e-5)
+    round_x = route == "ghost_bf16_x"
+    dy_before, x_before = dy.clone(), x.clone()
+    got, dscale, dbias = bn._dx(dy, x, scale, mean, inv, sdy, sdyx, sdy_own,
+                                sdyx_own, n, images * per_img,
+                                d if ghost else None, round_x)
+    if ghost:
+        want = _old_ghost_bwd_epilogue(x, dy, scale, mean, inv, d, sdy, sdyx,
+                                       images, n, round_x)
+    else:
+        want = _old_bwd_epilogue(x, dy, scale, mean, inv, sdy, sdyx, n)
+    pc = bn._per_channel
+    g = pc((scale * inv).abs(), x)
+    terms = (dy.abs() * g + pc((scale * inv * sdy / n).abs(), x)
+             + (x - pc(mean, x)).abs() * g * pc(
+                 (inv * inv * (sdyx.abs() + (mean * sdy).abs()) / n), x))
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert bool(((got - want).abs() <= 1e-5 * terms).all())
+    # the scale's and bias's gradients come from this rank's sums alone
+    torch.testing.assert_close(dscale, (sdyx_own - mean * sdy_own) * inv)
+    assert torch.equal(dbias, sdy_own)
+    if ghost:   # past the prefix dx is dy·g alone
+        np.testing.assert_array_equal(
+            got[images:].numpy(), (dy * pc(scale * inv, x))[images:].numpy())
+    assert torch.equal(dy, dy_before) and torch.equal(x, x_before)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dx_plain_rounds_once_to_the_dtype_of_its_output(dtype):
+    """`_dx_plain` computes in f32 and rounds once at the end: in bf16 its
+    dx is the f32 dx rounded, into a given output or a new one like x."""
+    rng = np.random.RandomState(12)
+    R, C = 40, 16
+    x2 = torch.from_numpy(rng.randn(R, C).astype(np.float32)).to(dtype)
+    dy2 = torch.from_numpy(rng.randn(R, C).astype(np.float32)).to(dtype)
+    v = [torch.from_numpy(rng.rand(C).astype(np.float32) + 0.5)
+         for _ in range(7)]
+    f32, ds32 = bn._dx_plain(dy2.float(), x2.float(), *v, R, R)
+    got, ds = bn._dx_plain(dy2, x2, *v, R, R)
+    assert got.dtype == dtype and torch.equal(got, f32.to(dtype))
+    assert torch.equal(ds, ds32)
+    out = torch.empty_like(x2)
+    assert bn._dx_plain(dy2, x2, *v, R, R, out=out)[0] is out
+    assert torch.equal(out, got)
+
+
+def test_dx_raises_off_the_cpu_and_the_card():
+    x = torch.empty((2, 3, 2, 2), device="meta",
+                    memory_format=torch.channels_last)
+    v = torch.empty(3, device="meta")
+    with pytest.raises(ValueError, match="no BatchNorm dx path"):
+        bn._dx(x, x, v, v, v, v, v, v, v, 8, 8)
+
+
+def test_dx_launch_shape_stays_within_the_grid_limits():
+    """bn_dx's geometry (pure Python) at ResNet-50@448's shapes at batch
+    128 and 2 and a ragged one, on 132 SMs: its tiles, at most 65,535 row
+    splits (the grid's second dimension) and no more than there are row
+    blocks."""
+    from learning_embeddings_tpu_torch.ops import bn_triton
+
+    for R, C in [(r * b, c) for r, c in RESNET50_448_BN
+                 for b in (128, 2)] + [
+            (12345, 100), (1, 3)]:
+        block_r, block_c, n_splits = bn_triton.launch_shape(
+            R, C, 132, bn_triton._DX_TILE_ELEMS,
+            bn_triton._DX_PROGRAMS_PER_SM)
+        assert block_r * block_c == bn_triton._DX_TILE_ELEMS
+        assert block_c & (block_c - 1) == 0 and block_c >= min(C, 128)
+        assert 1 <= n_splits <= min(-(-R // block_r), 65535)

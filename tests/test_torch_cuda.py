@@ -390,6 +390,96 @@ def test_inference_on_the_card_matches_the_cpu(gen):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+#: per-image (R, C) of ResNet-50@448's 53 BatchNorm layers (12 shapes)
+RESNET50_448_BN = [(50176, 64), (12544, 64), (12544, 128), (12544, 256),
+                   (3136, 128), (3136, 256), (3136, 512), (784, 256),
+                   (784, 512), (784, 1024), (196, 512), (196, 2048)]
+
+
+def _ulp(v, dtype):
+    """One unit in the last place of |v| in `dtype` (bf16 or f32)."""
+    bits = {torch.bfloat16: 7, torch.float32: 23}[dtype]
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v.abs())[1] - 1 - bits)
+
+
+def _dx_inputs(R, C, dtype, gen, images=None):
+    """dy, x (R, C) of `dtype` and the per-channel vectors of one
+    BatchNorm backward, from the data: statistics over the first `images`
+    rows (all for None) and sums over all rows."""
+    x = (0.5 + 1.5 * torch.randn((R, C), device="cuda", generator=gen)) \
+        .to(dtype)
+    dy = torch.randn((R, C), device="cuda", generator=gen).to(dtype)
+    n = R if images is None else images
+    s, q = bn._stats_plain(x[:n])
+    mean = s / n
+    d = q / n - mean * mean
+    inv = torch.rsqrt(torch.clamp_min(d, 0.0) + 1e-5)
+    scale = 1 + 0.2 * torch.randn(C, device="cuda", generator=gen)
+    sdy, sdyx = bn._corr_plain(dy, x)
+    return dy, x, scale, mean, inv, sdy, sdyx, d
+
+
+@pytest.mark.parametrize("R,C", [(r * 2, c) for r, c in RESNET50_448_BN]
+                         + [(12345, 100)], ids=str)
+def test_bn_dx_matches_plain(gen, R, C):
+    """The dx kernel against `_dx_plain` at ResNet-50@448's BatchNorm
+    shapes (batch 2) and a ragged one, bf16 and f32 inputs, the plain
+    route and the ghost route (a row prefix, x rounded to bf16, one
+    channel clamped): at most one ulp of dx's dtype per element beyond
+    the f32 rounding of the terms it sums (2^-21 of their magnitude:
+    Triton contracts a·b + c into one FMA where eager PyTorch rounds the
+    product first, and computes the per-channel coefficients in another
+    order). The scale's gradient agrees likewise; one launch each."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for ghost in (False, True):
+            rows = R // 3 if ghost else R
+            dy, x, scale, mean, inv, sdy, sdyx, d = _dx_inputs(
+                R, C, dtype, gen, rows if ghost else None)
+            if ghost:
+                d[0] = -1e-3
+            args = (dy, x, scale, mean, inv, sdy, sdyx, sdy, sdyx, rows,
+                    rows, d if ghost else None, ghost)
+            dy0, x0 = dy.clone(), x.clone()
+            before = bn_triton.DX_LAUNCHES
+            got, dscale = bn_triton.bn_dx(*args)
+            torch.cuda.synchronize()
+            assert bn_triton.DX_LAUNCHES == before + 1
+            want, dscale_want = bn._dx_plain(*args)
+            assert got.dtype == dtype and got.shape == (R, C)
+            g = (scale * inv).abs()
+            terms = (dy.float().abs() * g + (g * sdy / rows).abs()
+                     + (x.float() - mean).abs() * g * inv * inv
+                     * (sdyx.abs() + (mean * sdy).abs()) / rows)
+            err = (got.float() - want.float()).abs()
+            tol = _ulp(torch.maximum(got.float().abs(), want.float().abs()),
+                       dtype) + 2.0 ** -21 * terms
+            assert bool((err <= tol).all()), (dtype, ghost,
+                                              err.max().item())
+            torch.testing.assert_close(dscale, dscale_want, rtol=1e-5,
+                                       atol=1e-5 * dscale_want.abs().max())
+            assert torch.equal(dy, dy0) and torch.equal(x, x0)
+
+
+def test_dx_allocates_only_its_output_on_the_card(gen):
+    """The backward epilogue on the card holds no f32 activation: its
+    peak above the inputs is dx (x's dtype) and a few (C,) vectors."""
+    N, C, H, W = 8, 64, 112, 112
+    x = torch.randn((N, H, W, C), device="cuda", generator=gen) \
+        .to(torch.bfloat16).permute(0, 3, 1, 2)
+    dy = torch.randn((N, H, W, C), device="cuda", generator=gen) \
+        .to(torch.bfloat16).permute(0, 3, 1, 2)
+    v = [torch.rand(C, device="cuda", generator=gen) + 0.5
+         for _ in range(7)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dx, dscale, dbias = bn._dx(dy, x, *v, N * H * W, N * H * W)
+    torch.cuda.synchronize()
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert dx.dtype == torch.bfloat16
+    assert torch.cuda.max_memory_allocated() - base <= x.nbytes + 2 ** 20
+
+
 @pytest.mark.parametrize("R,C", [(12345, 100), (401408, 64), (25088, 2048)])
 def test_bn_stats_bf16_rounding_variant_matches_plain(gen, R, C):
     """K1's rounding variant (each x² rounded to bf16 before the sum, the
@@ -468,25 +558,30 @@ def _resnet50_step_counts(**cfg_kw):
     ll = lm.leaf_paths()[rng.randint(0, lm.levels[-1], 4)]
     b = tr.put_batch(rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8),
                      ll, np.zeros((4, lm.n_classes), np.float32))
-    before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES)
+    before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES,
+              bn_triton.DX_LAUNCHES)
     _, loss = tr.train_step(tr.state, *b)
     torch.cuda.synchronize()
     assert np.isfinite(float(loss))
     return (bn_triton.STATS_LAUNCHES - before[0],
-            bn_triton.CORR_LAUNCHES - before[1])
+            bn_triton.CORR_LAUNCHES - before[1],
+            bn_triton.DX_LAUNCHES - before[2])
 
 
 def test_remat_step_launch_counts(gen):
     """A ResNet-50 step with remat: K1 53 + 52 times (the 52 block
     BatchNorms recompute their forward in the backward pass; the stem's
-    does not), K2 53 times."""
-    assert _resnet50_step_counts(remat=True) == (105, 53)
-    assert _resnet50_step_counts() == (53, 53)
+    does not), K2 and the dx kernel 53 times (the backward runs once)."""
+    assert _resnet50_step_counts(remat=True) == (105, 53, 53)
+    assert _resnet50_step_counts() == (53, 53, 53)
 
 
 def test_flax_route_launches_no_bn_kernel(gen):
-    assert _resnet50_step_counts(bn_impl="flax") == (0, 0)
-    assert _resnet50_step_counts(bn_impl="flax", bn_stats_rows=2) == (53, 53)
+    """The flax route launches none of the three; its ghost statistics
+    (which take the port's route) launch each once a BatchNorm."""
+    assert _resnet50_step_counts(bn_impl="flax") == (0, 0, 0)
+    assert _resnet50_step_counts(bn_impl="flax", bn_stats_rows=2) == (
+        53, 53, 53)
 
 
 def _cls_batch(lm, B, size, seed):
@@ -547,8 +642,8 @@ def test_two_gloo_ranks_on_the_card_match_one_process(gen, tmp_path):
             assert c["collective_bn_stats"] == c["collective_bn_corr"] == 20
             want_k1 = {"fused": 20, "ghost": 20 if rank == 0 else 0,
                        "flax": 0}[name]
-            assert (c["bn_stats"], c["bn_corr"]) == (
-                want_k1, 0 if name == "flax" else 20), (name, rank)
+            assert (c["bn_stats"], c["bn_corr"], c["bn_dx"]) == (
+                want_k1, *(0 if name == "flax" else 20,) * 2), (name, rank)
 
 
 def test_k3_tiles_on_a_mesh_equal_the_whole(gen, tmp_path):
