@@ -1,0 +1,20 @@
+"""mfu.vit: the ViT classifier train step's share of the card's dense
+bf16 peak (989 TFLOP/s, at 700 W): the ViT's operations for each trained
+image (``lib/vit_flops.py``: 3 forward passes of the patch embedding,
+the linear layers, the attention's products and the head) times the
+images per second of the window's untraced part. Layer: model step.
+Moves train_images_per_s."""
+
+from benchmark.lib.flops import H100_BF16_FLOPS
+from benchmark.lib.vit_flops import train_flops
+from benchmark.reference.vit import Arch
+
+
+def read(window, info):
+    host = info.get("host", {})
+    images = host.get("images")
+    if not images or host["window_s"] <= 0 or "arch" not in info:
+        return None
+    rate = images / host["window_s"]
+    return 100.0 * train_flops(Arch(*info["arch"]), info["n_out"]) * rate \
+        / H100_BF16_FLOPS

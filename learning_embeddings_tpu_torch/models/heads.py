@@ -31,7 +31,9 @@ BOTTLENECK_DIM = 2
 
 class HierarchicalCNN(nn.Module):
     """Backbone trunk (`trunk`: any of ``BACKBONES``, with the remat,
-    stem and BatchNorm options of ``models/resnet.py``) + a head.
+    stem and BatchNorm options of ``models/resnet.py``; `image_size` sizes
+    a ViT's position embedding, and the convolutional trunks ignore it) +
+    a head.
 
     Takes NCHW images (channels_last memory on the card) with
     `in_channels` channels (1 for grayscale) and returns raw f32 scores:
@@ -45,7 +47,7 @@ class HierarchicalCNN(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, in_channels: int = 3,
                  remat: bool = False, stem: str = "conv7",
                  bn_stats_rows: int = 0, bn_impl: str = "pallas",
-                 bn_stats_dtype: str = "float32"):
+                 bn_stats_dtype: str = "float32", image_size: int = 448):
         super().__init__()
         if head not in HEADS:
             raise ValueError(f"unknown head {head!r}; expected {HEADS}")
@@ -55,7 +57,8 @@ class HierarchicalCNN(nn.Module):
                                 in_channels=in_channels, remat=remat,
                                 stem=stem, bn_stats_rows=bn_stats_rows,
                                 bn_impl=bn_impl,
-                                bn_stats_dtype=bn_stats_dtype)
+                                bn_stats_dtype=bn_stats_dtype,
+                                image_size=image_size)
         feat = self.trunk.feature_dim
         if head == "bottleneck2d":
             self.bottleneck = nn.Linear(feat, BOTTLENECK_DIM)

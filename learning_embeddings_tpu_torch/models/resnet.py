@@ -1,5 +1,6 @@
 """The backbone zoo in PyTorch: the port of ``learning_embeddings_tpu/
-models/resnet.py`` (ResNet-18 to -152, ``AlexNet``, ``VGG11BN``).
+models/resnet.py`` (ResNet-18 to -152, ``AlexNet``, ``VGG11BN``), and
+the port's own ViT-L/16 (``models/vit.py``), registered here.
 
 * Parameter names are torchvision's for the ResNets (conv1, bn1,
   layer{i}.{j}.conv{k} / bn{k} / downsample.{0,1}), so a JAX tree carried
@@ -71,10 +72,12 @@ __all__ = [
     "resnet50",
     "resnet101",
     "resnet152",
+    "vit_l_16",
     "BACKBONES",
     "STEMS",
     "make_trunk",
     "init_params_",
+    "lecun_normal_",
     "space_to_depth",
     "s2d_stem_kernel",
     "spatial_halo_counts",
@@ -287,7 +290,7 @@ class ResNet(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, in_channels: int = 3,
                  remat: bool = False, stem: str = "conv7",
                  bn_impl: str = "pallas", bn_stats_rows: int = 0,
-                 bn_stats_dtype: str = "float32"):
+                 bn_stats_dtype: str = "float32", image_size: int = None):
         super().__init__()
         if stem not in STEMS:
             raise ValueError(f"unknown stem {stem!r}; expected {STEMS}")
@@ -366,7 +369,8 @@ class AlexNet(nn.Module):
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  in_channels: int = 3, remat: bool = False,
                  stem: str = "conv7", bn_impl: str = "pallas",
-                 bn_stats_rows: int = 0, bn_stats_dtype: str = "float32"):
+                 bn_stats_rows: int = 0, bn_stats_dtype: str = "float32",
+                 image_size: int = None):
         super().__init__()
         self.dtype = dtype
         self.spatial = None
@@ -408,7 +412,8 @@ class VGG11BN(nn.Module):
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  in_channels: int = 3, remat: bool = False,
                  stem: str = "conv7", bn_impl: str = "pallas",
-                 bn_stats_rows: int = 0, bn_stats_dtype: str = "float32"):
+                 bn_stats_rows: int = 0, bn_stats_dtype: str = "float32",
+                 image_size: int = None):
         super().__init__()
         norm = make_norm(bn_impl, bn_stats_rows, bn_stats_dtype, dtype)
         self.dtype = dtype
@@ -439,18 +444,27 @@ class VGG11BN(nn.Module):
         return _run_units(self, x.to(self.dtype), self.spatial_units())
 
 
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """LeCun-normal over the fan in of `weight`'s rows, truncated at two
+    standard deviations (flax's default kernel init), from `generator`."""
+    # stddev of the unit normal truncated to [-2, 2] is 0.8796
+    std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+
+
 @torch.no_grad()
 def init_params_(module: nn.Module, generator: torch.Generator) -> None:
     """Initialise like flax's defaults, from `generator`: conv and linear
     weights LeCun-normal (truncated at two standard deviations), biases 0,
-    BatchNorm scale 1 / bias 0 / running mean 0 / running var 1."""
+    BatchNorm scale 1 / bias 0 / running mean 0 / running var 1. A module
+    with a ``reset_parameters_(generator)`` method initialises its own
+    parameters by it (the ViT's, ``models/vit.py``), in the same walk."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            # stddev of the unit normal truncated to [-2, 2] is 0.8796
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+        if hasattr(m, "reset_parameters_"):
+            m.reset_parameters_(generator)
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
+            lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNormBase):
@@ -480,6 +494,13 @@ def resnet152(**kw):
     return ResNet(stage_sizes=(3, 8, 36, 3), block=Bottleneck, **kw)
 
 
+def vit_l_16(**kw):
+    """ViT-L/16 (``models/vit.py``, which builds on this module's
+    ``Conv2d``)."""
+    from .vit import vit_l_16 as build
+    return build(**kw)
+
+
 BACKBONES: dict = {
     "alexnet": AlexNet,
     "vgg11_bn": VGG11BN,
@@ -488,6 +509,7 @@ BACKBONES: dict = {
     "resnet50": resnet50,
     "resnet101": resnet101,
     "resnet152": resnet152,
+    "vit_l_16": vit_l_16,
 }
 
 

@@ -27,14 +27,16 @@ __all__ = ["classifier_run", "classifier_steps", "classifier_cases",
 
 
 def counts() -> Dict[str, int]:
-    """This process's kernel launches, BatchNorm channels_last copies and
+    """This process's kernel launches (the attention's forward and
+    backward calls among them), BatchNorm channels_last copies and
     collectives so far."""
-    from ..ops import bn, bn_triton
+    from ..ops import attention, bn, bn_triton
     from ..ops import pairwise_order as k3
 
     return {"bn_stats": bn_triton.STATS_LAUNCHES,
             "bn_corr": bn_triton.CORR_LAUNCHES,
             "bn_dx": bn_triton.DX_LAUNCHES,
+            "attention": attention.LAUNCHES,
             "pairwise_order": k3.LAUNCHES,
             "pairwise_order_exact_d": k3.EXACT_D_LAUNCHES,
             "channels_last_copies": bn.CHANNELS_LAST_COPIES,
@@ -42,9 +44,10 @@ def counts() -> Dict[str, int]:
 
 
 def reset_counts() -> None:
-    from ..ops import bn, bn_triton
+    from ..ops import attention, bn, bn_triton
     from ..ops import pairwise_order as k3
 
+    attention.LAUNCHES = 0
     bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
     bn_triton.STATS_ROUNDED_LAUNCHES = bn_triton.DX_LAUNCHES = 0
     k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0

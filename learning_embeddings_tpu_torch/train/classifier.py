@@ -27,6 +27,10 @@ statistics update on every micro-batch), grayscale input and
 the BatchNorm routes of ``ops/bn.py``: ``bn_stats_rows`` /
 ``bn_stats_dtype`` (``GhostBatchNorm``) before ``bn_impl`` ('pallas', the
 fused reductions, the port's default; 'flax', the library's BatchNorm).
+``backbone="vit_l_16"`` (``models/vit.py``) has no BatchNorm: the
+BatchNorm options are accepted and change nothing, its position
+embedding is sized by ``image_size``, and it runs on one device (a mesh
+of several ranks or ``spatial_partition`` raises ValueError).
 
 On a mesh (``mesh=``, ``parallel/mesh.py``), as the JAX package's GSPMD
 step: the batch shards over 'data' (``put_batch`` keeps this rank's rows
@@ -237,6 +241,20 @@ def _check_options(cfg: ClassifierConfig) -> None:
         raise ValueError(f"grad_accum must be ≥ 1, got {cfg.grad_accum}")
 
 
+def _check_trunk(trunk, cfg: ClassifierConfig, mesh) -> None:
+    # a trunk with no spatial units (ViT) runs whole, on one device
+    if hasattr(trunk, "spatial_units"):
+        return
+    if cfg.spatial_partition:
+        raise ValueError(f"spatial_partition: the {cfg.backbone} trunk has "
+                         f"no windows of H to shard; train it without "
+                         f"spatial partitioning")
+    if mesh is not None and mesh.size > 1:
+        raise ValueError(f"the {cfg.backbone} trunk runs on one device; "
+                         f"a mesh of {mesh.size} ranks is not supported "
+                         f"for it")
+
+
 class ClassifierTrainer:
     """Builds the model, optimizer and steps on `cfg.device`, or on this
     rank's place of `mesh`; `grayscale` gives the trunk one input
@@ -256,7 +274,9 @@ class ClassifierTrainer:
             head=cfg.head_override or CRITERION_TO_HEAD[cfg.criterion],
             dtype=cfg.dtype, in_channels=self.n_channels, remat=cfg.remat,
             stem=cfg.stem, bn_stats_rows=cfg.bn_stats_rows,
-            bn_impl=cfg.bn_impl, bn_stats_dtype=cfg.bn_stats_dtype)
+            bn_impl=cfg.bn_impl, bn_stats_dtype=cfg.bn_stats_dtype,
+            image_size=cfg.image_size)
+        _check_trunk(model.trunk, cfg, mesh)
         init_params_(model, torch.Generator().manual_seed(cfg.seed))
         model.to(device=self.device, memory_format=torch.channels_last)
         #: the full-shape name of each sharded weight → its layer

@@ -699,3 +699,132 @@ def test_batch_norm_spans_time_within_the_steps_wall_clock(gen):
     assert sum(got["bn.fwd_epilogue"]) + sum(got["bn.bwd_epilogue"]) \
         <= wall_ms
     profiling.clear_spans()
+
+
+# ---------------------------------------------------------------------------
+# ViT-L/16 (models/vit.py) and the attention op (ops/attention.py)
+# ---------------------------------------------------------------------------
+
+def _vit_reference():
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark.lib.vit_inputs import vit_params
+    from benchmark.reference import resnet as rref
+    from benchmark.reference import vit as vref
+    return vit_params, vref, rref
+
+
+def _rel(got, want):
+    got, want = got.detach().float(), want.detach()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def test_vit_l16_at_448_matches_the_reference(gen):
+    """ViT-L/16 at 448², batch 2, bf16 on the card against the f32
+    reference (TF32 off): logits and every leaf's first gradient. bf16
+    through 24 blocks is the stated precision, so the tolerance is what
+    that precision alone does: the program may differ from the f32
+    reference by at most 4× as much as the reference rounded to bf16
+    where the program rounds (`bf16_round`) does, plus 1e-3; the worst
+    leaf and the median leaf are held apart."""
+    from learning_embeddings_tpu_torch.models.heads import HierarchicalCNN
+
+    vit_params, vref, rref = _vit_reference()
+    levels = (5, 23, 116, 200)
+    arch = vref.Arch()
+    w = vit_params(11, "cuda", arch, sum(levels))
+    model = HierarchicalCNN("vit_l_16", levels, image_size=448).to(
+        "cuda", memory_format=torch.channels_last)
+    model.load_state_dict(w)
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (2, 448, 448, 3)).astype(np.uint8)
+    labels = np.stack([rng.randint(0, n, 2) for n in levels], axis=1)
+    x = rref.scale_images(torch.from_numpy(images).cuda())
+    ll = torch.from_numpy(labels).cuda()
+    logits = model.train()(x)
+    rref.multi_level_ce(logits, ll, levels).backward()
+    got = {k: p.grad for k, p in model.named_parameters()}
+
+    def reference(q):
+        with rref.float32_math():
+            p = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+            out = vref.head(p, vref.features(p, x, arch, q, recompute=True))
+            g = torch.autograd.grad(rref.multi_level_ce(out, ll, levels),
+                                    list(p.values()))
+        return out.detach(), dict(zip(p, g))
+
+    ref_logits, ref_grads = reference(rref.identity)
+    bf_logits, bf_grads = reference(rref.bf16_round)
+    assert _rel(logits, ref_logits) <= 4 * _rel(bf_logits, ref_logits) \
+        + 1e-3
+    gaps = {k: _rel(got[k], g) for k, g in ref_grads.items()}
+    bf = {k: _rel(bf_grads[k], g) for k, g in ref_grads.items()}
+    assert max(gaps.values()) <= 4 * max(bf.values()) + 1e-3, sorted(
+        gaps.items(), key=lambda kv: -kv[1])[:5]
+    assert np.median(list(gaps.values())) <= \
+        4 * np.median(list(bf.values())) + 1e-3
+
+
+def _sdpa_node(out):
+    # attention's output → _BackwardStarts → the fused op's own node
+    return out.grad_fn.next_functions[0][0].name()
+
+
+def test_pinned_attention_backend_is_the_one_that_ran(gen):
+    """The attention at ViT-L/16's shape runs cuDNN's kernels, the pinned
+    backend (2.75× flash's speed there: tools/attention_backends.py,
+    PERF.md), forward and backward, and matches the softmax math within
+    bf16's rounding of the output and gradients."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from learning_embeddings_tpu_torch.ops import attention as att
+
+    q, k, v = (torch.randn(2, 16, 785, 64, device="cuda", generator=gen)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = att.attention(q, k, v)
+        out.backward(torch.ones_like(out))
+        torch.cuda.synchronize()
+    assert _sdpa_node(out) == "ScaledDotProductCudnnAttentionBackward0"
+    names = [e.name.lower() for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    # cuDNN names its kernels "cudnn_generated_..._sdpa_..._flash_...":
+    # PyTorch's own flash kernels live in the pytorch_flash namespace
+    assert any("cudnn" in n for n in names), names[:20]
+    assert not any(o in n for n in names
+                   for o in ("pytorch_flash", "fmha_cutlass", "efficient"))
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    want = torch.softmax(qf @ kf.transpose(-2, -1) / 8.0, -1) @ vf
+    want.backward(torch.ones_like(want))
+    assert _rel(out.detach(), want.detach()) <= 2 ** -7
+    for got, w in ((q, qf), (k, kf), (v, vf)):
+        assert _rel(got.grad, w.grad) <= 2 ** -6
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_vit_train_step_launch_counts(gen, remat):
+    """A ViT-L/16 train step at 448² through ``ClassifierTrainer``: the
+    attention 48 times (a forward and a backward per block; 72 with
+    remat), no BatchNorm kernel; then an eval step of finite scores."""
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.parallel import programs
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig, ClassifierTrainer)
+
+    lm = toy_labelmap(2, 3)
+    tr = ClassifierTrainer(lm, ClassifierConfig(
+        backbone="vit_l_16", image_size=448, batch_size=2, remat=remat,
+        device="cuda"))
+    b = tr.put_batch(*_cls_batch(lm, 2, 448, 0))
+    programs.reset_counts()
+    tr.state, loss = tr.train_step(tr.state, *b)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    c = programs.counts()
+    assert c["attention"] == (72 if remat else 48)
+    assert (c["bn_stats"], c["bn_corr"], c["bn_dx"]) == (0, 0, 0)
+    loss, scores = tr.eval_step(tr.state, *b)
+    assert bool(torch.isfinite(scores).all()) and np.isfinite(float(loss))
