@@ -22,7 +22,12 @@ and prints no result line):
               at the same shapes against _dx_plain (one bf16 ulp beyond
               the f32 rounding of its terms), timed beside its byte bound,
               _dx_plain and torch.batch_norm_backward_elemt (the library
-              yardstick; the port never calls it);
+              yardstick; the port never calls it); bn_act (Triton) at the
+              same shapes against _act_plain with train coefficients, the
+              ReLU and with and without the residual (one ulp of y), timed
+              beside its byte bound (x and, after each bn3, the residual
+              read once, the output written once: 8.482 ms a step at
+              batch 128) and _act_plain (the unfused chain);
             - pairwise_order (CUDA C++, two kernels chosen by D: exact_d
               for 1 ≤ D ≤ 16, generic past it) at the three (M, N, D)
               shapes of the joint eval, the same at ETHEC's 723 labels,
@@ -267,15 +272,20 @@ RESNET18_64_BN = {(1024, 64): 1, (256, 64): 4, (64, 128): 5, (16, 256): 5,
                   (4, 512): 5}
 RESNET18_32_BN = {(256, 64): 1, (64, 64): 4, (16, 128): 5, (4, 256): 5,
                   (1, 512): 5}
+#: of those, the layers whose output takes the residual add (each bn3)
+RESNET50_448_RESIDUAL = {(12544, 256): 3, (3136, 512): 4, (784, 1024): 6,
+                         (196, 2048): 3}
 RAGGED = (12345, 100)
 KERNEL_SRC = {"bn_stats": "learning_embeddings_tpu_torch/ops/bn_triton.py",
               "bn_corr": "learning_embeddings_tpu_torch/ops/bn_triton.py",
               "bn_dx": "learning_embeddings_tpu_torch/ops/bn_triton.py",
+              "bn_act": "learning_embeddings_tpu_torch/ops/bn_triton.py",
               "pairwise_order":
                   "learning_embeddings_tpu_torch/csrc/pairwise_order.cu"}
 TPU_KERNELS = {"bn_stats": "learning_embeddings_tpu/ops/bn_pallas.py:52",
                "bn_corr": "learning_embeddings_tpu/ops/bn_pallas.py:64",
                "bn_dx": None,
+               "bn_act": None,
                "pairwise_order":
                    "learning_embeddings_tpu/geometry/pairwise.py:46"}
 #: sizes of the ETHEC val and test splits: the joint eval's image counts
@@ -539,6 +549,74 @@ def dx_bound_ms(R, C, dtype=None):
     return 1e3 * (3 * R * C * itemsize + 8 * C * 4) / HBM_BYTES_PER_S
 
 
+def check_act(R, C, gen, dtype=None):
+    """bn_act against _act_plain on normal inputs of `dtype` (by default
+    bf16), with the train coefficients of the data's sums and the ReLU,
+    without and with the residual: within one ulp of y (and one of the
+    output after the add). Returns the max abs error and, for each of the
+    two, the device times of the kernel and of _act_plain (the unfused
+    chain: the fold's launches, addcmul, add, ReLU), and the kernel's
+    eager time."""
+    import torch
+
+    from learning_embeddings_tpu_torch.ops import bn, bn_triton
+
+    dtype = dtype or torch.bfloat16
+
+    def inputs():
+        x = (0.5 + 1.5 * torch.randn((R, C), device=DEV, generator=gen)) \
+            .to(dtype)
+        r = torch.randn((R, C), device=DEV, generator=gen).to(dtype)
+        scale = 1 + 0.2 * torch.randn(C, device=DEV, generator=gen)
+        bias = 0.1 * torch.randn(C, device=DEV, generator=gen)
+        return x, r, torch.empty_like(x), scale, bias, *bn._stats_plain(x)
+
+    args = inputs()
+    x, r, _, scale, bias, s, q = args
+    y, _ = bn._act_plain(x, scale, bias, 1e-5, s, q, R, relu=False)
+    err = 0.0
+    for res in (None, r):
+        got, _ = bn_triton.bn_act(x, scale, bias, 1e-5, s, q, R,
+                                  residual=res)
+        want, _ = bn._act_plain(x, scale, bias, 1e-5, s, q, R,
+                                residual=res)
+        diff = (got.float() - want.float()).abs()
+        tol = _ulp(y.float(), dtype) + (0 if res is None else _ulp(
+            torch.maximum(got.float().abs(), want.float().abs()), dtype))
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"bn_act {(R, C)}: kernel and plain "
+                                 f"version differ by {diff.max().item()} "
+                                 f"beyond one ulp")
+        err = max(err, diff.max().item())
+    del y, got, want, diff, tol
+    copies = [args] + [inputs() for _ in range(
+        n_copies(3 * R * C * dtype.itemsize) - 1)]
+    times = {}
+    for tag, res in (("", False), ("residual_", True)):
+        def kernel(x, r, out, scale, bias, s, q, res=res):
+            return bn_triton.bn_act(x, scale, bias, 1e-5, s, q, R,
+                                    residual=r if res else None, out=out)
+
+        def plain(x, r, out, scale, bias, s, q, res=res):
+            return bn._act_plain(x, scale, bias, 1e-5, s, q, R,
+                                 residual=r if res else None)
+        times[tag + "ms"] = device_ms(kernel, copies)
+        times[tag + "plain_ms"] = device_ms(plain, copies)
+        times[tag + "eager_ms"] = cuda_ms(kernel, copies)
+    return err, times
+
+
+def act_bound_ms(R, C, residual=False, dtype=None):
+    """Least time of bn_act: x (by default bf16), with `residual` the
+    residual too, read once and the output written once, and its (C,)
+    f32 vectors (Σx, Σx², scale and bias read, mean, var, inv and d
+    written), over the HBM rate (its few f32 operations an element take
+    a tenth of that)."""
+    itemsize = 2 if dtype is None else dtype.itemsize
+    return 1e3 * ((3 if residual else 2) * R * C * itemsize + 8 * C * 4) \
+        / HBM_BYTES_PER_S
+
+
 def _as4d(x2, R):
     """(R·B, C) rows of images with R = H·W rows each → the NCHW
     channels_last tensor they view (H·W as square as R allows)."""
@@ -549,16 +627,17 @@ def _as4d(x2, R):
 
 def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels",
                   dtype=None):
-    """K1 and K2 against their plain versions (and timed) at the BN
-    shapes of one train step, `shapes` per image (default ResNet-50@448's)
-    times `batch`, and at the ragged shape; inputs of `dtype` (by default
-    bf16)."""
+    """K1, K2, bn_dx and bn_act against their plain versions (and timed)
+    at the BN shapes of one train step, `shapes` per image (default
+    ResNet-50@448's, whose bn3 layers take the residual) times `batch`,
+    and at the ragged shape; inputs of `dtype` (by default bf16)."""
     import torch
 
     from learning_embeddings_tpu_torch.ops import bn, bn_triton
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = []
+    residual = RESNET50_448_RESIDUAL if shapes is None else {}
     shapes = RESNET50_448_BN if shapes is None else shapes
     for (R, C), mult in list(shapes.items()) + ([(ragged, 0)] if ragged
                                                 else []):
@@ -587,6 +666,18 @@ def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels",
         err, times = check_dx(Rb, C, gen, dtype)
         row["bn_dx"] = {"max_abs_err": err, **times,
                         "bound_ms": dx_bound_ms(Rb, C, dtype)}
+        # per layer: those with the residual at its time, the rest (and
+        # the ragged shape) without
+        n_res = residual.get((R, C), 0) if mult else 0
+        w = n_res / mult if mult else 0.0
+        err, t = check_act(Rb, C, gen, dtype)
+        row["bn_act"] = {
+            "max_abs_err": err, "residual_layers": n_res, **t,
+            **{k: (1 - w) * t[k] + w * t["residual_" + k]
+               for k in ("ms", "plain_ms", "eager_ms")},
+            "library_ms": None,
+            "bound_ms": (1 - w) * act_bound_ms(Rb, C, False, dtype)
+            + w * act_bound_ms(Rb, C, True, dtype)}
         rows.append(row)
         log(f"[{tag}] R={Rb:>8} C={C:>4} x{mult:<2} " + " | ".join(
             f"{n} {row[n]['ms'] * 1e3:7.1f}us (eager "
@@ -595,6 +686,12 @@ def kernels_phase(batch, shapes=None, ragged=RAGGED, tag="kernels",
             f"{row[n]['library_ms'] * 1e3:7.1f}, bound "
             f"{row[n]['bound_ms'] * 1e3:6.1f}) err {row[n]['max_abs_err']:.3g}"
             for n in ("bn_stats", "bn_corr", "bn_dx")))
+        a = row["bn_act"]
+        log(f"[{tag}] R={Rb:>8} C={C:>4} x{mult:<2} bn_act "
+            f"{a['ms'] * 1e3:7.1f}us a layer (residual "
+            f"{a['residual_ms'] * 1e3:7.1f}, eager {a['eager_ms'] * 1e3:6.1f},"
+            f" plain {a['plain_ms'] * 1e3:7.1f}, bound "
+            f"{a['bound_ms'] * 1e3:6.1f}) err {a['max_abs_err']:.3g}")
     return rows
 
 
@@ -1086,7 +1183,8 @@ def slice_phase(labelmap, batch, steps=3, warmup=2):
     seconds = time.perf_counter() - t0
     launches = {"bn_stats": bn_triton.STATS_LAUNCHES,
                 "bn_corr": bn_triton.CORR_LAUNCHES,
-                "bn_dx": bn_triton.DX_LAUNCHES}
+                "bn_dx": bn_triton.DX_LAUNCHES,
+                "bn_act": bn_triton.ACT_LAUNCHES}
     copies = bn.CHANNELS_LAST_COPIES
 
     want = sorted((R * batch, C) for (R, C), n in RESNET50_448_BN.items()
@@ -1118,7 +1216,7 @@ def slice_phase(labelmap, batch, steps=3, warmup=2):
     log(f"[slice] resnet50@448 batch {batch}, {labelmap.n_classes} classes "
         f"{tuple(labelmap.levels)}: losses {losses}")
     log(f"[slice] launches {launches} over {n_steps} steps "
-        f"(53 + 53 + 53 per step), channels_last copies {copies}")
+        f"(53 + 53 + 53 + 53 per step), channels_last copies {copies}")
     log(f"[slice] {result['ms_per_step']:.2f} ms/step, "
         f"{result['images_per_s']:.1f} images/s, peak memory "
         f"{result['max_memory_allocated_gib']:.2f} GiB")
@@ -1209,6 +1307,7 @@ def _reset_counts():
 
     bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
     bn_triton.STATS_ROUNDED_LAUNCHES = bn_triton.DX_LAUNCHES = 0
+    bn_triton.ACT_LAUNCHES = 0
     k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0
     bn.CHANNELS_LAST_COPIES = 0
 
@@ -1221,6 +1320,7 @@ def _read_counts():
             "bn_stats_rounded": bn_triton.STATS_ROUNDED_LAUNCHES,
             "bn_corr": bn_triton.CORR_LAUNCHES,
             "bn_dx": bn_triton.DX_LAUNCHES,
+            "bn_act": bn_triton.ACT_LAUNCHES,
             "pairwise_order": k3.LAUNCHES,
             "pairwise_order_exact_d": k3.EXACT_D_LAUNCHES,
             "pairwise_order_generic": k3.GENERIC_LAUNCHES}
@@ -4189,6 +4289,27 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
         "shapes": [{"R": r["R"], "C": r["C"], "layers": r["layers"],
                     **{k: r["bn_dx"][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "library_ms",
+                        "bound_ms")}} for r in bn_rows],
+    })
+    tot = {k: sum(r["bn_act"][k] * r["layers"] for r in bn_rows)
+           for k in ("ms", "eager_ms", "plain_ms", "bound_ms")}
+    kernels.append({
+        "name": "bn_act", "route": "triton", "source": KERNEL_SRC["bn_act"],
+        "replaces": TPU_KERNELS["bn_act"],
+        "replaces_note": "no TPU kernel: the JAX package leaves the "
+                         "normalisation, ReLU and residual add to XLA",
+        "launches": slice_result["launches"]["bn_act"],
+        "max_abs_err": max(r["bn_act"]["max_abs_err"]
+                           for rows in [bn_rows, r18_rows, vgg]
+                           + list(mesh_rows.values()) for r in rows),
+        **tot, "library_ms": None, "bound_by": "bytes",
+        "library_note": "no PyTorch call applies the BatchNorm with the "
+                        "residual add and ReLU",
+        "launches_by_path": by_path("bn_act"),
+        "shapes": [{"R": r["R"], "C": r["C"], "layers": r["layers"],
+                    **{k: r["bn_act"][k] for k in (
+                        "max_abs_err", "residual_layers", "ms",
+                        "residual_ms", "plain_ms", "residual_plain_ms",
                         "bound_ms")}} for r in bn_rows],
     })
     path = [r for r in k3_result["shapes"] if r["on_path"]]

@@ -23,6 +23,9 @@ the port's own ViT-L/16 (``models/vit.py``), registered here.
   picks the route, with the JAX package's precedence. Unlike the JAX
   package's ``VGG11BN``, which always runs flax's BatchNorm, the port's
   takes ``bn_impl`` like the ResNets (default 'pallas': the kernels).
+  Each ``relu(bn(x) [+ residual])`` is the BatchNorm's ``act(x,
+  residual)``, one pass on the card; a downsample's BatchNorm, which no
+  ReLU follows, is ``bn(x)``.
 * ``stem='s2d'``: space-to-depth(2), channels in the JAX package's order
   (u·2 + v)·C + c (``F.pixel_unshuffle`` orders them c·4 + u·2 + v), then
   a 4×4/s1 conv after an asymmetric (2, 1) ``F.pad``: the exact
@@ -191,10 +194,9 @@ class BasicBlock(nn.Module):
                 Conv2d(cin, filters, 1, stride), norm(filters))
 
     def forward(self, x, sp=None):
-        y = F.relu(self.bn1(self.conv1(x, sp)))
-        y = self.bn2(self.conv2(y, sp))
+        y = self.bn1.act(self.conv1(x, sp))
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + residual)
+        return self.bn2.act(self.conv2(y, sp), residual)
 
     def windows(self):
         """The chains of H windows from the block's input: the main path
@@ -221,11 +223,10 @@ class Bottleneck(nn.Module):
                 Conv2d(cin, cout, 1, stride), norm(cout))
 
     def forward(self, x, sp=None):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y, sp)))
-        y = self.bn3(self.conv3(y))
+        y = self.bn1.act(self.conv1(x))
+        y = self.bn2.act(self.conv2(y, sp))
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + residual)
+        return self.bn3.act(self.conv3(y), residual)
 
     def windows(self):
         """The chains of H windows from the block's input: the main path
@@ -323,7 +324,7 @@ class ResNet(nn.Module):
                 x = self.conv1(F.pad(x, (2, 1)), sp, pad_h=(2, 1))
         else:
             x = self.conv1(x, sp)
-        return F.relu(self.bn1(x))
+        return self.bn1.act(x)
 
     def _block_forward(self, blk):
         def run(x, sp):
@@ -436,7 +437,7 @@ class VGG11BN(nn.Module):
             else:
                 conv, bn = getattr(self, f"conv{k}"), getattr(self, f"bn{k}")
                 units.append(((conv, bn), lambda x, sp, conv=conv, bn=bn:
-                              F.relu(bn(conv(x, sp))), [[conv_window(conv)]]))
+                              bn.act(conv(x, sp)), [[conv_window(conv)]]))
                 k += 1
         return units
 

@@ -7,11 +7,12 @@ Three routes, chosen by ``make_norm`` with the JAX package's precedence
 first, then ``bn_impl``.
 
 * ``FusedBatchNorm`` (``bn_impl='pallas'``): the two per-channel
-  reductions go through ``_stats`` / ``_corr``, and the backward's dx and
-  scale gradient through ``_dx``: on a CUDA tensor they launch the Triton
-  kernels of ``ops/bn_triton.py`` (always; there is no fallback on the
-  card), on a CPU tensor they run the plain PyTorch versions below. The
-  normalisation stays plain elementwise PyTorch.
+  reductions go through ``_stats`` / ``_corr``, the forward's fold and
+  normalisation, with the ReLU and residual add that follow it, through
+  ``_act``, and the backward's dx and scale gradient through ``_dx``: on
+  a CUDA tensor they launch the Triton kernels of ``ops/bn_triton.py``
+  (always; there is no fallback on the card), on a CPU tensor they run
+  the plain PyTorch versions below.
 * ``GhostBatchNorm`` (``bn_stats_rows`` > 0 or ``bn_stats_dtype`` bf16):
   the statistics come from the first ``stats_rows`` batch rows only (all
   rows for 0 or less), a contiguous row prefix of the (R, C) view that
@@ -21,13 +22,27 @@ first, then ``bn_impl``.
   out: ``_corr`` over all R rows (every row's dy reaches the statistics
   through a and b), the mean and variance terms back into the prefix rows
   only, and none through ``max(var, 0)`` where it clamps. Its dx is the
-  same ``_dx`` as the fused route's, with a row limit.
+  same ``_dx`` as the fused route's, with a row limit; its forward the
+  same ``_act``.
 * ``FlaxBatchNorm`` (``bn_impl='flax'``): the library's train-mode
   BatchNorm (``F.batch_norm``, whose kernels PyTorch picks: ATen's
   channels_last ones for the bf16 trunk on the card), as the JAX package's
-  ``nn.BatchNorm`` is XLA's and no Pallas kernel. It launches no kernel of
-  this repo. Its running statistics move with the biased variance (see
+  ``nn.BatchNorm`` is XLA's and no Pallas kernel, followed by the plain
+  residual add and ReLU. It launches no kernel of this repo in train
+  mode. Its running statistics move with the biased variance (see
   ``_library_batch_norm_train``).
+
+The activation: a module's ``act(x, residual, relu)`` is relu(bn(x) +
+residual) (the add with a residual, the ReLU with `relu`), which the
+trunks call in place of ``F.relu(bn(x) [+ residual])``; ``forward(x)`` is
+``act(x, relu=False)``. The train routes of the port (fused, ghost) take
+both into their autograd Function: the forward runs ``_act`` once (the
+``bn_act`` kernel on the card) and keeps its output for the ReLU's mask,
+and the backward masks dy as autograd's ReLU does (``threshold_backward``
+on that output), returns the masked dy as the residual's gradient, then
+runs K2 and ``_dx``. Eval mode launches ``_act`` with the running
+statistics, except where autograd records (a gradient through an eval
+BatchNorm), which runs the plain chain ``_act_plain``.
 
 Same function as the JAX package computes:
 
@@ -36,7 +51,9 @@ Same function as the JAX package computes:
   variance max(Σx²/R − mean², 0) — the running variance is updated with
   it on every route, unlike ``nn.BatchNorm2d``'s unbiased one;
 * the forward folds into a = scale·rsqrt(var + eps), b = bias − mean·a in
-  f32, then y = x·a + b in the activation dtype;
+  f32, then y = x·a + b in the activation dtype (a and b rounded to it
+  first); the residual add in f32, y rounded to the activation dtype
+  before it and the sum after it;
 * the backward computes dx in f32 and rounds it once to x's dtype;
 * flax momentum: running = 0.9·running + 0.1·batch; eps 1e-5.
 
@@ -214,38 +231,84 @@ def _dx(dy, x, scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own, n, r_pre,
     return dx, dscale.to(scale.dtype), sdy_own.to(scale.dtype)
 
 
-def _fwd_epilogue(x, scale, bias, eps, s, q, n, round_bf16=False):
-    """The forward after K1's sums s = Σx, q = Σx² over n rows: the
-    statistics (each mean rounded to bf16 with `round_bf16`), the biased
-    variance, the fold into a = scale·rsqrt(var + eps), b = bias − mean·a,
-    and y = x·a + b in x's dtype. Returns (y, mean, var, inv, d), d the
-    variance before its clamp at 0. Run in the span "bn.fwd_epilogue"."""
-    mean, msq = s / n, q / n
-    if round_bf16:   # jnp.mean of a bf16 array: f32 sum, bf16 result
-        mean = mean.to(torch.bfloat16).float()
-        msq = msq.to(torch.bfloat16).float()
-    d = msq - mean * mean
-    var = torch.clamp_min(d, 0.0)
+def _fold(scale, bias, eps, u, v, n=None, round_bf16=False):
+    """The per-channel coefficients in f32. With `n` (train mode) from
+    K1's sums u = Σx, v = Σx² over n rows: the means (each rounded to
+    bf16 with `round_bf16`), d = msq − mean² and the biased variance
+    max(d, 0); else (eval mode) u, v are the running mean and variance.
+    Then inv = rsqrt(var + eps), a = scale·inv, b = bias − mean·a.
+    Returns (a, b, (mean, var, inv, d)), d None in eval mode."""
+    if n is None:
+        mean, var, d = u, v, None
+    else:
+        mean, msq = u / n, v / n
+        if round_bf16:   # jnp.mean of a bf16 array: f32 sum, bf16 result
+            mean = mean.to(torch.bfloat16).float()
+            msq = msq.to(torch.bfloat16).float()
+        d = msq - mean * mean
+        var = torch.clamp_min(d, 0.0)
     inv = torch.rsqrt(var + eps)
     a = scale.float() * inv
     b = bias.float() - mean * a
+    return a, b, (mean, var, inv, d)
+
+
+def _act_plain(x, scale, bias, eps, u, v, n=None, round_bf16=False,
+               residual=None, relu=True):
+    """``bn_triton.bn_act`` in plain PyTorch, the unfused chain: the fold
+    (``_fold``, arguments as its), y = x·a + b in x's dtype
+    (``addcmul``), y + residual, ReLU. x is (N, C, ...) with channels at
+    dim 1, or an (R, C) matrix. The CPU's route, the kernel's oracle, and
+    eval mode's route where autograd records. Returns (out, stats): the
+    f32 (mean, var, inv, d) of train mode, None in eval mode."""
+    a, b, stats = _fold(scale, bias, eps, u, v, n, round_bf16)
     y = torch.addcmul(_per_channel(b.to(x.dtype), x), x,
                       _per_channel(a.to(x.dtype), x))
-    return y, mean, var, inv, d
+    if residual is not None:
+        y = y + residual
+    if relu:
+        y = F.relu(y)
+    return y, None if n is None else stats
+
+
+def _act(x, scale, bias, eps, u, v, n=None, round_bf16=False,
+         residual=None, relu=True):
+    """act(x·a + b [+ residual]) in x's dtype: the kernel on the card (in
+    x's channel-minor layout), ``_act_plain`` on the CPU (arguments and
+    result as its). Train mode runs it in the span "bn.fwd_epilogue"."""
+    if x.is_cuda:
+        from . import bn_triton
+        x = _channel_minor(x)
+        out = torch.empty_like(x)
+        r2 = None if residual is None else _rows(_channel_minor(residual))
+        _, stats = bn_triton.bn_act(_rows(x), scale, bias, eps, u, v, n,
+                                    round_bf16, r2, relu, out=_rows(out))
+        return out, stats
+    if x.device.type == "cpu":
+        return _act_plain(x, scale, bias, eps, u, v, n, round_bf16,
+                          residual, relu)
+    raise ValueError(f"no BatchNorm forward path for {x.device}")
+
+
+def _relu_mask(dy, out):
+    """dy through the ReLU whose output is `out` (None: no ReLU), as
+    autograd's ReLU backward computes it."""
+    return dy if out is None else torch.ops.aten.threshold_backward(
+        dy, out, 0)
 
 
 class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, group):
+    def forward(ctx, x, scale, bias, eps, group, residual, relu):
         x = _channel_minor(x)
         x2 = _rows(x)
         R = x2.shape[0] * group_size(group)
         s, q = _summed(group, "bn_stats", *_stats(x2))
-        y, mean, var, inv, _ = profiling.in_device_span(
-            "bn.fwd_epilogue", x.device, _fwd_epilogue, x, scale, bias, eps,
-            s, q, R)
-        ctx.save_for_backward(x, scale, mean, inv)
+        y, (mean, var, inv, _) = profiling.in_device_span(
+            "bn.fwd_epilogue", x.device, _act, x, scale, bias, eps, s, q, R,
+            False, residual, relu)
+        ctx.save_for_backward(x, scale, mean, inv, y if relu else None)
         ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -253,31 +316,35 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         # the statistics are consumed without gradient (running averages)
-        x, scale, mean, inv = ctx.saved_tensors
-        dy = _channel_minor(dy)
+        x, scale, mean, inv, out = ctx.saved_tensors
+        dy = _relu_mask(_channel_minor(dy), out)
         rows = x.numel() // x.shape[1]
         sdy_own, sdyx_own = _corr(_rows(dy), _rows(x))
         sdy, sdyx = _summed(ctx.group, "bn_corr", sdy_own, sdyx_own)
         return profiling.in_device_span(
             "bn.bwd_epilogue", x.device, _dx, dy, x, scale, mean, inv, sdy,
             sdyx, sdy_own, sdyx_own, rows * group_size(ctx.group),
-            rows) + (None, None)
+            rows) + (None, None, dy if ctx.needs_input_grad[5] else None,
+                     None)
 
 
-def batch_norm_train(x, scale, bias, eps: float = 1e-5, group=None):
+def batch_norm_train(x, scale, bias, eps: float = 1e-5, group=None,
+                     residual=None, relu: bool = False):
     """Train-mode batch norm of x (N, C, ...) over all axes but dim 1, and
-    over the ranks of `group` (None: this device's rows only).
+    over the ranks of `group` (None: this device's rows only), then
+    `residual` (x's shape and dtype) added and a ReLU with `relu`.
 
     Returns (y, mean, var): biased variance, f32 statistics, y in x.dtype
     and in x's channel-minor layout. mean and var carry no gradient."""
-    return _BatchNormTrain.apply(x, scale, bias, eps, group)
+    return _BatchNormTrain.apply(x, scale, bias, eps, group, residual,
+                                 bool(relu))
 
 
 class _GhostBatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps, stats_rows, round_bf16, group,
-                parts):
+                parts, residual, relu):
         x = _channel_minor(x)
         n_img = x.shape[0]
         # the prefix of the global batch; this rank holds (its `parts`-th
@@ -297,10 +364,10 @@ class _GhostBatchNormTrain(torch.autograd.Function):
         else:   # no row of this rank is in the prefix: no launch
             s = q = torch.zeros(x2.shape[1], device=x.device)
         s, q = _summed(group, "bn_stats", s, q)
-        y, mean, var, inv, d = profiling.in_device_span(
-            "bn.fwd_epilogue", x.device, _fwd_epilogue, x, scale, bias, eps,
-            s, q, n, round_bf16)
-        ctx.save_for_backward(x, scale, mean, inv, d)
+        y, (mean, var, inv, d) = profiling.in_device_span(
+            "bn.fwd_epilogue", x.device, _act, x, scale, bias, eps, s, q, n,
+            round_bf16, residual, relu)
+        ctx.save_for_backward(x, scale, mean, inv, d, y if relu else None)
         ctx.r_pre, ctx.n, ctx.round_bf16 = xs2.shape[0], n, round_bf16
         ctx.group = group
         ctx.mark_non_differentiable(mean, var)
@@ -308,32 +375,35 @@ class _GhostBatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
-        x, scale, mean, inv, d = ctx.saved_tensors
-        dy = _channel_minor(dy)
+        x, scale, mean, inv, d, out = ctx.saved_tensors
+        dy = _relu_mask(_channel_minor(dy), out)
         sdy_own, sdyx_own = _corr(_rows(dy), _rows(x))    # over all R rows
         sdy, sdyx = _summed(ctx.group, "bn_corr", sdy_own, sdyx_own)
         return profiling.in_device_span(
             "bn.bwd_epilogue", x.device, _dx, dy, x, scale, mean, inv, sdy,
             sdyx, sdy_own, sdyx_own, ctx.n, ctx.r_pre, d,
-            ctx.round_bf16) + (None,) * 6
+            ctx.round_bf16) + (None,) * 5 + (
+                dy if ctx.needs_input_grad[8] else None, None)
 
 
 def ghost_batch_norm_train(x, scale, bias, eps: float = 1e-5,
                            stats_rows: int = 8,
                            stats_dtype: torch.dtype = torch.float32,
-                           group=None, parts: int = 1):
+                           group=None, parts: int = 1, residual=None,
+                           relu: bool = False):
     """``batch_norm_train`` with the statistics of the first `stats_rows`
     batch rows (all for ≤ 0) of the global batch (over the ranks of
     `group`, `parts` of which hold pieces of the same images) in
     `stats_dtype` (float32 or bfloat16): the JAX package's
-    ``GhostBatchNorm`` in train mode. The normalisation covers every row.
-    Returns (y, mean, var)."""
+    ``GhostBatchNorm`` in train mode. The normalisation covers every row;
+    `residual` and `relu` as ``batch_norm_train``'s. Returns (y, mean,
+    var)."""
     if stats_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"stats_dtype must be float32 or bfloat16, got "
                          f"{stats_dtype}")
     return _GhostBatchNormTrain.apply(x, scale, bias, eps, int(stats_rows),
                                       stats_dtype == torch.bfloat16, group,
-                                      int(parts))
+                                      int(parts), residual, bool(relu))
 
 
 def _own_stats(x, eps: float):
@@ -437,8 +507,8 @@ class BatchNormBase(nn.Module):
     statistics into a = weight·rsqrt(var + eps), b = bias − mean·a.
 
     `dtype` is the activation dtype the input is cast to; parameters and
-    running statistics stay f32. Subclasses give ``_train(x)`` → (y,
-    mean, var)."""
+    running statistics stay f32. Subclasses give ``_train(x, residual,
+    relu)`` → (act(y [+ residual]), mean, var)."""
 
     #: flax's momentum (the running value keeps 0.9 of itself) and eps
     momentum = 0.9
@@ -460,34 +530,44 @@ class BatchNormBase(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def _train(self, x):
+    def _train(self, x, residual, relu):
         raise NotImplementedError
 
-    def forward(self, x):
+    def act(self, x, residual=None, relu: bool = True):
+        """relu(bn(x) + residual): the residual (x's shape, in the
+        activation dtype) added when given, the ReLU with `relu`; in the
+        activation dtype."""
         x = x.to(self.dtype)
-        if not self.training:
-            inv = torch.rsqrt(self.running_var + self.eps)
-            a = self.weight * inv
-            b = self.bias - self.running_mean * a
-            return torch.addcmul(_per_channel(b.to(self.dtype), x), x,
-                                 _per_channel(a.to(self.dtype), x))
-        y, mean, var = self._train(x)
-        if not self.recomputing:
-            with torch.no_grad():
-                self.running_mean.copy_(self.momentum * self.running_mean
-                                        + (1 - self.momentum) * mean)
-                self.running_var.copy_(self.momentum * self.running_var
-                                       + (1 - self.momentum) * var)
-        return y
+        if self.training:
+            y, mean, var = self._train(x, residual, relu)
+            if not self.recomputing:
+                with torch.no_grad():
+                    self.running_mean.copy_(
+                        self.momentum * self.running_mean
+                        + (1 - self.momentum) * mean)
+                    self.running_var.copy_(
+                        self.momentum * self.running_var
+                        + (1 - self.momentum) * var)
+            return y
+        args = (x, self.weight, self.bias, self.eps, self.running_mean,
+                self.running_var)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, residual, self.weight, self.bias)):
+            return _act_plain(*args, residual=residual, relu=relu)[0]
+        return _act(*args, residual=residual, relu=relu)[0]
+
+    def forward(self, x):
+        return self.act(x, relu=False)
 
 
 class FusedBatchNorm(BatchNormBase):
     """``nn.Module`` twin of the JAX package's ``PallasBatchNorm``: train
     mode runs ``batch_norm_train`` (the kernels on the card)."""
 
-    def _train(self, x):
+    def _train(self, x, residual, relu):
         return batch_norm_train(x, self.weight, self.bias, self.eps,
-                                self.group)
+                                self.group, residual, relu)
 
 
 class GhostBatchNorm(BatchNormBase):
@@ -502,20 +582,25 @@ class GhostBatchNorm(BatchNormBase):
         self.stats_rows = int(stats_rows)
         self.stats_dtype = stats_dtype
 
-    def _train(self, x):
+    def _train(self, x, residual, relu):
         return ghost_batch_norm_train(x, self.weight, self.bias, self.eps,
                                       self.stats_rows, self.stats_dtype,
-                                      self.group, self.parts)
+                                      self.group, self.parts, residual,
+                                      relu)
 
 
 class FlaxBatchNorm(BatchNormBase):
     """Counterpart of flax's ``nn.BatchNorm`` (``bn_impl='flax'``): the
-    library's train-mode BatchNorm, no kernel of this repo; the running
-    statistics move with the biased variance and flax's momentum."""
+    library's train-mode BatchNorm, then the residual add and ReLU as
+    plain PyTorch, no kernel of this repo; the running statistics move
+    with the biased variance and flax's momentum."""
 
-    def _train(self, x):
-        return _library_batch_norm_train(x, self.weight, self.bias, self.eps,
-                                         self.group)
+    def _train(self, x, residual, relu):
+        y, mean, var = _library_batch_norm_train(x, self.weight, self.bias,
+                                                 self.eps, self.group)
+        if residual is not None:
+            y = y + residual
+        return (F.relu(y) if relu else y), mean, var
 
 
 def set_batch_norm_group(module: nn.Module, group, parts: int = 1) -> None:

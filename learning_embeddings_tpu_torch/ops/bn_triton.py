@@ -51,9 +51,37 @@ dtype at the store. One expression serves the plain and the ghost routes
 write the scale's gradient. It writes a separate output, never into dy
 (autograd hands the same gradient to both branches of a residual add).
 
+The fourth, ``bn_act`` (``bn_act_kernel``: x (R, C), optionally a
+residual r (R, C), and the per-channel sums or running statistics →
+act(x·a + b [+ r])), replaces no TPU kernel either: the JAX package
+leaves the normalisation, ReLU and residual add to XLA, which fuses them
+into the convolution's epilogue. Eager PyTorch ran them as ~13 tiny f32
+launches for the fold of a and b, ATen's strided ``addcmul`` (the
+per-channel broadcast over a channels_last tensor), a residual ``add``
+and a ReLU ``clamp``, each writing its bf16 result to HBM and the next
+reading it back. What bounds the fused pass: HBM bytes, x (and r) read
+once and the output written once, 4 (6) bytes an element in bf16. Its
+prologue folds each channel block's coefficients in f32 from the (C,)
+vectors (train mode: mean = Σx·(1/n), msq = Σx²·(1/n), each rounded to
+bf16 for the bf16 statistics; d = msq − mean², var = max(d, 0), inv =
+rsqrt(var + eps), a = scale·inv, b = bias − mean·a; eval mode: the
+running mean and variance for mean and var); the programs of row split
+0 write the (C,) mean, var, inv and d that the backward and the running
+averages read. Then one streaming pass over the 2-D grid writes
+act(round(x·round(a) + round(b)) [+ r]), rounded to x's dtype at each
+place the unfused chain rounds: x·a + b once (an FMA, as ATen's
+``addcmul`` computes it; the product of two bf16 values is exact), y
+before the residual add, the add in f32 and rounded once. The ReLU
+passes NaN, as ``F.relu`` does. It is compiled without contracting any
+other a·b + c into an FMA (``enable_fp_fusion`` off), so each f32
+operation of the fold rounds as the separate ATen kernels round theirs;
+1/n is rounded to f32 on the host, as ATen's division by a scalar does.
+So in bf16 the output and the statistics equal the chain's on the card
+bit for bit; the card tests hold it to within one ulp of y.
+
 Not yet done (later work, with its times in PERF.md): TMA bulk loads,
-persistent programs, fusing the normalisation into the forward's next
-elementwise passes.
+persistent programs, the ReLU mask read inside K2 and the residual
+gradient's add folded into ``bn_dx``.
 
 ``triton`` is imported, and the kernels are built, on the first launch
 only: this module imports on a host with no Triton. The compiled kernels
@@ -66,15 +94,16 @@ each x² is rounded to bf16 before it is summed, as ``xs * xs`` rounds in
 a bf16 array, through a ``constexpr`` switch of the same kernel.
 
 Each wrapper adds one to its launch count (``STATS_LAUNCHES``,
-``CORR_LAUNCHES``, ``DX_LAUNCHES``) where it launches its kernel, and
-nowhere else; a launch of the rounding variant also counts in
-``STATS_ROUNDED_LAUNCHES``.
+``CORR_LAUNCHES``, ``DX_LAUNCHES``, ``ACT_LAUNCHES``) where it launches
+its kernel, and nowhere else; a launch of the rounding variant also
+counts in ``STATS_ROUNDED_LAUNCHES``.
 """
 
 import contextlib
 import functools
 import os
 
+import numpy as np
 import torch
 
 os.environ.setdefault(
@@ -82,14 +111,16 @@ os.environ.setdefault(
     os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), ".torch_kernels", "triton"))
 
-__all__ = ["bn_stats", "bn_corr", "bn_dx", "STATS_LAUNCHES",
-           "CORR_LAUNCHES", "DX_LAUNCHES", "STATS_ROUNDED_LAUNCHES"]
+__all__ = ["bn_stats", "bn_corr", "bn_dx", "bn_act", "STATS_LAUNCHES",
+           "CORR_LAUNCHES", "DX_LAUNCHES", "ACT_LAUNCHES",
+           "STATS_ROUNDED_LAUNCHES"]
 
-#: launches of the bn_stats / bn_corr / bn_dx kernels since import (or
-#: last reset)
+#: launches of the bn_stats / bn_corr / bn_dx / bn_act kernels since
+#: import (or last reset)
 STATS_LAUNCHES = 0
 CORR_LAUNCHES = 0
 DX_LAUNCHES = 0
+ACT_LAUNCHES = 0
 #: the bn_stats launches with round_sq=True (also counted in STATS_LAUNCHES)
 STATS_ROUNDED_LAUNCHES = 0
 
@@ -103,13 +134,18 @@ _PROGRAMS_PER_SM = 4
 _DX_TILE_ELEMS = 8192
 _DX_NUM_WARPS = 8
 _DX_PROGRAMS_PER_SM = 16
+#: bn_act's, from a sweep of 25 geometries at ResNet-50@448's shapes
+#: (PERF.md): larger tiles and more programs than bn_dx's
+_ACT_TILE_ELEMS = 16384
+_ACT_NUM_WARPS = 4
+_ACT_PROGRAMS_PER_SM = 64
 
 _KERNELS = None
 tl = None   # triton.language, bound on the first launch (see _kernels)
 
 
 def _kernels():
-    """Build (once) and return the three jitted kernels."""
+    """Build (once) and return the four jitted kernels."""
     global _KERNELS, tl
     if _KERNELS is not None:
         return _KERNELS
@@ -212,7 +248,63 @@ def _kernels():
             tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty),
                      mask=mask)
 
-    _KERNELS = (bn_stats_kernel, bn_corr_kernel, bn_dx_kernel)
+    # R changes with the batch: not specialised on
+    @triton.jit(do_not_specialize=["R"])
+    def bn_act_kernel(x_ptr, r_ptr, out_ptr, scale_ptr, bias_ptr, u_ptr,
+                      v_ptr, stats_ptr, R, C, inv_n, eps,
+                      BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
+                      TRAIN: tl.constexpr, ROUND_STATS: tl.constexpr,
+                      RESIDUAL: tl.constexpr, RELU: tl.constexpr):
+        pid_c = tl.program_id(0)
+        pid_s = tl.program_id(1)
+        n_splits = tl.num_programs(1)
+        cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        # prologue: this channel block's a and b, as ops/bn.py::_fold's
+        u = tl.load(u_ptr + cols, mask=cmask, other=0.0)
+        v = tl.load(v_ptr + cols, mask=cmask, other=1.0)
+        if TRAIN:   # u, v: Σx, Σx² over n rows
+            mean = u * inv_n
+            msq = v * inv_n
+            if ROUND_STATS:   # jnp.mean of a bf16 array: a bf16 result
+                mean = mean.to(tl.bfloat16).to(tl.float32)
+                msq = msq.to(tl.bfloat16).to(tl.float32)
+            d = msq - mean * mean
+            var = tl.where(d < 0.0, 0.0, d)
+        else:       # u, v: the running mean and variance
+            mean = u
+            var = v
+        inv = tl.math.rsqrt(var + eps)
+        a = tl.load(scale_ptr + cols, mask=cmask, other=0.0) \
+            .to(tl.float32) * inv
+        b = tl.load(bias_ptr + cols, mask=cmask, other=0.0) \
+            .to(tl.float32) - mean * a
+        if TRAIN:
+            if pid_s == 0:
+                tl.store(stats_ptr + cols, mean, mask=cmask)
+                tl.store(stats_ptr + C + cols, var, mask=cmask)
+                tl.store(stats_ptr + 2 * C + cols, inv, mask=cmask)
+                tl.store(stats_ptr + 3 * C + cols, d, mask=cmask)
+        ty = out_ptr.dtype.element_ty
+        a = tl.broadcast_to(a.to(ty).to(tl.float32)[None, :],
+                            (BLOCK_R, BLOCK_C))
+        b = tl.broadcast_to(b.to(ty).to(tl.float32)[None, :],
+                            (BLOCK_R, BLOCK_C))
+        for r0 in range(pid_s * BLOCK_R, R, n_splits * BLOCK_R):
+            rows = r0 + tl.arange(0, BLOCK_R)
+            mask = (rows < R)[:, None] & cmask[None, :]
+            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
+            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            y = tl.fma(x, a, b)   # one rounding, as ATen's addcmul
+            if RESIDUAL:   # y rounded first, the add in f32
+                r = tl.load(r_ptr + offs, mask=mask, other=0.0)
+                y = y.to(ty).to(tl.float32) + r.to(tl.float32)
+            if RELU:       # NaN passes, as F.relu's
+                y = tl.where(y <= 0.0, 0.0, y)
+            tl.store(out_ptr + offs, y.to(ty), mask=mask)
+
+    _KERNELS = (bn_stats_kernel, bn_corr_kernel, bn_dx_kernel,
+                bn_act_kernel)
     return _KERNELS
 
 
@@ -248,6 +340,19 @@ def _check(name: str, *ts: torch.Tensor):
     return R, C
 
 
+def _check_vectors(name: str, C: int, params, f32s):
+    """Contiguous CUDA (C,) vectors: `params` of any float dtype, `f32s`
+    (sums and statistics) in f32."""
+    for v in tuple(params) + tuple(f32s):
+        if not (v.is_cuda and v.shape == (C,) and v.is_contiguous()):
+            raise ValueError(f"{name}: expected contiguous CUDA ({C},) "
+                             f"vectors, got {v.device} {tuple(v.shape)}")
+    for v in f32s:
+        if v.dtype != torch.float32:
+            raise ValueError(f"{name}: expected f32 per-channel sums and "
+                             f"statistics, got {v.dtype}")
+
+
 @functools.lru_cache(maxsize=256)
 def _geometry(R: int, C: int, device_index: int, *tiling):
     n_sms = torch.cuda.get_device_properties(device_index) \
@@ -280,7 +385,7 @@ def bn_stats(x2: torch.Tensor, round_sq: bool = False):
     """Σx and Σx² over the rows of a CUDA (R, C) matrix, in f32; with
     `round_sq` each x² is rounded to bf16 before the sum."""
     global STATS_LAUNCHES, STATS_ROUNDED_LAUNCHES
-    stats_kernel, _, _ = _kernels()
+    stats_kernel = _kernels()[0]
     out = _launch(stats_kernel, "bn_stats", x2, ROUND_SQ=bool(round_sq))
     STATS_LAUNCHES += 1
     STATS_ROUNDED_LAUNCHES += bool(round_sq)
@@ -290,7 +395,7 @@ def bn_stats(x2: torch.Tensor, round_sq: bool = False):
 def bn_corr(dy2: torch.Tensor, x2: torch.Tensor):
     """Σdy and Σ(dy·x) over the rows of two CUDA (R, C) matrices, in f32."""
     global CORR_LAUNCHES
-    _, corr_kernel, _ = _kernels()
+    corr_kernel = _kernels()[1]
     out = _launch(corr_kernel, "bn_corr", dy2, x2)
     CORR_LAUNCHES += 1
     return out
@@ -310,18 +415,12 @@ def bn_dx(dy2, x2, scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own, n,
     global DX_LAUNCHES
     out = torch.empty_like(x2) if out is None else out
     R, C = _check("bn_dx", dy2, x2, out)
-    vectors = (scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own) + (
-        () if d is None else (d,))
-    for v in vectors:
-        if not (v.is_cuda and v.shape == (C,) and v.is_contiguous()):
-            raise ValueError(f"bn_dx: expected contiguous CUDA ({C},) "
-                             f"vectors, got {v.device} {tuple(v.shape)}")
-        if v is not scale and v.dtype != torch.float32:
-            raise ValueError(f"bn_dx: expected f32 per-channel sums and "
-                             f"statistics, got {v.dtype}")
+    _check_vectors("bn_dx", C, (scale,), (mean, inv, sdy, sdyx, sdy_own,
+                                         sdyx_own) + (
+        () if d is None else (d,)))
     if not 0 <= r_pre <= R:
         raise ValueError(f"bn_dx: row limit {r_pre} outside [0, {R}]")
-    _, _, dx_kernel = _kernels()
+    dx_kernel = _kernels()[2]
     dev = x2.device
     block_r, block_c, _, grid = _geometry(
         R, C, dev.index, _DX_TILE_ELEMS, _DX_PROGRAMS_PER_SM)
@@ -334,3 +433,45 @@ def bn_dx(dy2, x2, scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own, n,
                         ROUND_X=bool(round_x), num_warps=_DX_NUM_WARPS)
     DX_LAUNCHES += 1
     return out, dscale
+
+
+def bn_act(x2, scale, bias, eps, u, v, n=None, round_stats=False,
+           residual=None, relu=True, out=None):
+    """act(x·a + b [+ residual]) of a CUDA (R, C) matrix x2 in one launch:
+    ``ops/bn.py::_act_plain``'s arithmetic. With `n` (train mode) the
+    (C,) f32 vectors u, v are Σx, Σx² over n rows (each mean rounded to
+    bf16 with `round_stats`), else the running mean and variance; a =
+    scale·rsqrt(var + eps), b = bias − mean·a. `residual`, an (R, C)
+    matrix of x2's dtype, is added to y before the ReLU (with `relu`).
+    The output goes into `out` (a new tensor like x2 if None), in x2's
+    dtype. Returns (out, stats): stats the f32 (mean, var, inv, d) of
+    train mode, d the variance before its clamp at 0; None in eval
+    mode."""
+    global ACT_LAUNCHES
+    out = torch.empty_like(x2) if out is None else out
+    R, C = _check("bn_act", x2, out, *(() if residual is None
+                                        else (residual,)))
+    for t in (out, residual):
+        if t is not None and t.dtype != x2.dtype:
+            raise ValueError(f"bn_act: expected the residual and output in "
+                             f"x's dtype {x2.dtype}, got {t.dtype}")
+    _check_vectors("bn_act", C, (scale, bias), (u, v))
+    act_kernel = _kernels()[3]
+    dev = x2.device
+    block_r, block_c, _, grid = _geometry(
+        R, C, dev.index, _ACT_TILE_ELEMS, _ACT_PROGRAMS_PER_SM)
+    train = n is not None
+    stats = torch.empty((4, C), device=dev, dtype=torch.float32) \
+        if train else None
+    # 1/n rounded to f32, as ATen divides by a scalar
+    inv_n = float(np.float32(1.0) / np.float32(n)) if train else 1.0
+    with _on_device(dev):
+        act_kernel[grid](x2, x2 if residual is None else residual, out,
+                         scale, bias, u, v, u if stats is None else stats,
+                         R, C, inv_n, float(eps), BLOCK_R=block_r,
+                         BLOCK_C=block_c, TRAIN=train,
+                         ROUND_STATS=bool(round_stats),
+                         RESIDUAL=residual is not None, RELU=bool(relu),
+                         num_warps=_ACT_NUM_WARPS, enable_fp_fusion=False)
+    ACT_LAUNCHES += 1
+    return out, None if stats is None else tuple(stats.unbind(0))

@@ -36,6 +36,7 @@ def counts() -> Dict[str, int]:
     return {"bn_stats": bn_triton.STATS_LAUNCHES,
             "bn_corr": bn_triton.CORR_LAUNCHES,
             "bn_dx": bn_triton.DX_LAUNCHES,
+            "bn_act": bn_triton.ACT_LAUNCHES,
             "attention": attention.LAUNCHES,
             "pairwise_order": k3.LAUNCHES,
             "pairwise_order_exact_d": k3.EXACT_D_LAUNCHES,
@@ -50,6 +51,7 @@ def reset_counts() -> None:
     attention.LAUNCHES = 0
     bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
     bn_triton.STATS_ROUNDED_LAUNCHES = bn_triton.DX_LAUNCHES = 0
+    bn_triton.ACT_LAUNCHES = 0
     k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0
     bn.CHANNELS_LAST_COPIES = 0
     pmesh.COLLECTIVES.clear()

@@ -339,3 +339,196 @@ def test_dx_launch_shape_stays_within_the_grid_limits():
         assert block_r * block_c == bn_triton._DX_TILE_ELEMS
         assert block_c & (block_c - 1) == 0 and block_c >= min(C, 128)
         assert 1 <= n_splits <= min(-(-R // block_r), 65535)
+
+
+def _old_fwd_epilogue(x, scale, bias, eps, s, q, n, round_bf16=False):
+    """The forward epilogue as ops/bn.py wrote it before the fused pass:
+    the f32 fold, then y = x·a + b in x's dtype (the oracle of `_act`)."""
+    mean, msq = s / n, q / n
+    if round_bf16:
+        mean = mean.to(torch.bfloat16).float()
+        msq = msq.to(torch.bfloat16).float()
+    d = msq - mean * mean
+    var = torch.clamp_min(d, 0.0)
+    inv = torch.rsqrt(var + eps)
+    a = scale.float() * inv
+    b = bias.float() - mean * a
+    y = torch.addcmul(bn._per_channel(b.to(x.dtype), x), x,
+                      bn._per_channel(a.to(x.dtype), x))
+    return y, mean, var, inv, d
+
+
+#: the train routes of the port: (stats_rows, stats_dtype) or None for
+#: the fused route
+ACT_ROUTES = {"fused": None, "ghost_f32": (2, torch.float32),
+              "ghost_bf16": (2, torch.bfloat16)}
+
+
+def _train_bn(route, x, scale, bias, residual=None, relu=False):
+    ghost = ACT_ROUTES[route]
+    if ghost is None:
+        return batch_norm_train(x, scale, bias, 1e-5, None, residual, relu)
+    return bn.ghost_batch_norm_train(x, scale, bias, 1e-5, *ghost,
+                                     residual=residual, relu=relu)
+
+
+def _act_inputs(seed, dtype=torch.bfloat16, shape=(4, 6, 5, 8)):
+    x, scale, bias = _bn_inputs(shape, seed)
+    r = np.random.RandomState(seed + 1).randn(*shape).astype(np.float32)
+    return (_nchw(x).to(dtype), torch.from_numpy(scale),
+            torch.from_numpy(bias), _nchw(r).to(dtype))
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("route", list(ACT_ROUTES))
+def test_act_is_bit_equal_to_the_unfused_chain(route, residual, relu):
+    """`_act_plain` (the CPU's route of `_act`) in bf16, through each
+    train route's Function, against the unfused chain written out: the
+    old epilogue from K1's sums over the statistics' rows, then + r and
+    F.relu. Output and statistics equal bit for bit."""
+    x, scale, bias, r = _act_inputs(21)
+    ghost = ACT_ROUTES[route]
+    rows = (ghost[0] if ghost else x.shape[0]) * 6 * 5
+    x2 = bn._rows(x)[:rows]
+    round_bf16 = bool(ghost) and ghost[1] == torch.bfloat16
+    s, q = bn._stats_plain(x2.to(torch.bfloat16) if round_bf16 else x2,
+                           round_bf16)
+    want, mean, var, _, _ = _old_fwd_epilogue(x, scale, bias, 1e-5, s, q,
+                                              rows, round_bf16)
+    if residual:
+        want = want + r
+    if relu:
+        want = torch.nn.functional.relu(want)
+    got, gmean, gvar = _train_bn(route, x, scale, bias,
+                                 r if residual else None, relu)
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+    assert torch.equal(gmean, mean) and torch.equal(gvar, var)
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("route", list(ACT_ROUTES))
+def test_act_gradients_equal_the_chains(route, residual, relu):
+    """The gradients of x, the scale, the bias and the residual through
+    the fused Functions (the ReLU's mask and the residual's gradient in
+    the Function's backward) equal those of the Function without them
+    followed by autograd's add and ReLU, bit for bit, in bf16."""
+    x, scale, bias, r = _act_inputs(22)
+    dy = torch.from_numpy(np.random.RandomState(23).randn(
+        *x.shape).astype(np.float32)).to(torch.bfloat16)
+    grads = []
+    for fused in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, r)]
+        tx, ts, tb, tr = leaves
+        res = tr if residual else None
+        if fused:
+            y = _train_bn(route, tx, ts, tb, res, relu)[0]
+        else:
+            y = _train_bn(route, tx, ts, tb)[0]
+            if residual:
+                y = y + res
+            if relu:
+                y = torch.nn.functional.relu(y)
+        y.backward(dy)
+        grads.append([t.grad for t in leaves])
+    for name, want, got in zip(("x", "scale", "bias", "residual"), *grads):
+        if name == "residual" and not residual:
+            assert want is None and got is None
+            continue
+        assert got.dtype == want.dtype, name
+        assert torch.equal(got, want), name
+
+
+def test_act_eval_is_the_old_eval_expression():
+    """Eval mode without a gradient (`_act`, the kernel's route) and with
+    one (the plain chain under autograd) both equal the running
+    statistics' fold written out, with the residual and the ReLU; the
+    gradients of the chain reach the weight, the bias and the input."""
+    x, scale, bias, r = _act_inputs(24)
+    rng = np.random.RandomState(25)
+    m = FusedBatchNorm(8, dtype=torch.bfloat16)
+    m.load_state_dict({"weight": scale, "bias": bias,
+                       "running_mean": torch.from_numpy(
+                           (0.3 * rng.randn(8)).astype(np.float32)),
+                       "running_var": torch.from_numpy(
+                           (0.5 + rng.rand(8)).astype(np.float32))})
+    m.eval()
+    inv = torch.rsqrt(m.running_var + m.eps)
+    a = m.weight * inv
+    b = m.bias - m.running_mean * a
+    pc = bn._per_channel
+    want = torch.nn.functional.relu(torch.addcmul(
+        pc(b.to(x.dtype), x), x, pc(a.to(x.dtype), x)) + r).detach()
+    with torch.no_grad():
+        assert torch.equal(m.act(x, r), want)
+        assert torch.equal(m(x), torch.addcmul(pc(b.to(x.dtype), x), x,
+                                               pc(a.to(x.dtype), x)))
+    tx = x.clone().requires_grad_(True)
+    got = m.act(tx, r)
+    assert torch.equal(got.detach(), want)
+    got.float().sum().backward()
+    assert m.weight.grad is not None and m.bias.grad is not None
+    assert torch.equal(tx.grad, (want > 0).to(x.dtype) * pc(
+        a.detach().to(x.dtype), x))
+
+
+def _count_act(monkeypatch):
+    calls = []
+    act = bn._act
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return act(*args, **kw)
+    monkeypatch.setattr(bn, "_act", counted)
+    return calls
+
+
+def test_flax_route_and_eval_with_a_gradient_take_the_chain(monkeypatch):
+    """The library's train route and eval mode where autograd records run
+    the plain chain: neither reaches `_act` (the kernel's route); the
+    port's train routes and eval mode without a gradient reach it once a
+    BatchNorm."""
+    x, scale, bias, r = _act_inputs(26)
+    calls = _count_act(monkeypatch)
+    for m in (bn.FlaxBatchNorm(8), FusedBatchNorm(8),
+              bn.GhostBatchNorm(8, stats_rows=2)):
+        m.train().act(x.clone().requires_grad_(True), r).sum().backward()
+    assert len(calls) == 2
+    m = FusedBatchNorm(8).eval()
+    m.act(x.clone().requires_grad_(True), r)
+    assert len(calls) == 2
+    with torch.no_grad():
+        m.act(x, r)
+    assert len(calls) == 3
+    flax = bn.FlaxBatchNorm(8).train()
+    y = flax.act(x, r)
+    ref, _, _ = bn._library_batch_norm_train(x, flax.weight, flax.bias,
+                                             flax.eps)
+    assert torch.equal(y, torch.nn.functional.relu(ref + r))
+
+
+def test_act_raises_off_the_cpu_and_the_card():
+    x = torch.empty((2, 3, 2, 2), device="meta",
+                    memory_format=torch.channels_last)
+    v = torch.empty(3, device="meta")
+    with pytest.raises(ValueError, match="no BatchNorm forward path"):
+        bn._act(x, v, v, 1e-5, v, v, 8)
+
+
+def test_act_launch_shape_stays_within_the_grid_limits():
+    """bn_act's geometry (pure Python) at ResNet-50@448's shapes at batch
+    128 and 2 and a ragged one, on 132 SMs: its tiles, at most 65,535 row
+    splits and no more than there are row blocks."""
+    from learning_embeddings_tpu_torch.ops import bn_triton
+
+    for R, C in [(r * b, c) for r, c in RESNET50_448_BN
+                 for b in (128, 2)] + [(12345, 100), (1, 3)]:
+        block_r, block_c, n_splits = bn_triton.launch_shape(
+            R, C, 132, bn_triton._ACT_TILE_ELEMS,
+            bn_triton._ACT_PROGRAMS_PER_SM)
+        assert block_r * block_c == bn_triton._ACT_TILE_ELEMS
+        assert block_c & (block_c - 1) == 0 and block_c >= min(C, 128)
+        assert 1 <= n_splits <= min(-(-R // block_r), 65535)

@@ -460,6 +460,114 @@ def test_bn_dx_matches_plain(gen, R, C):
             assert torch.equal(dy, dy0) and torch.equal(x, x0)
 
 
+#: the coefficients bn_act folds: train mode from sums over all rows,
+#: from a third of them (the ghost prefix) in f32 and with the bf16
+#: statistics' rounding, and eval mode's running statistics
+ACT_COEFFS = ("train", "ghost_f32", "ghost_bf16", "eval")
+
+
+def _act_coeffs(x, kind, gen):
+    """(u, v, n, round_stats) of bn_act for an (R, C) x."""
+    R, C = x.shape
+    if kind == "eval":
+        return (0.3 * torch.randn(C, device="cuda", generator=gen),
+                0.5 + torch.rand(C, device="cuda", generator=gen), None,
+                False)
+    rows = R if kind == "train" else max(R // 3, 1)
+    round_stats = kind == "ghost_bf16"
+    xs = x[:rows].to(torch.bfloat16) if round_stats else x[:rows]
+    return (*bn._stats_plain(xs, round_stats), rows, round_stats)
+
+
+@pytest.mark.parametrize("R,C", [(r * 2, c) for r, c in RESNET50_448_BN]
+                         + [(12345, 100)], ids=str)
+def test_bn_act_matches_plain(gen, R, C):
+    """The act kernel against `_act_plain` (the unfused chain) at
+    ResNet-50@448's BatchNorm shapes (batch 2) and a ragged one, bf16 and
+    f32 inputs, train coefficients (all rows; a ghost prefix in f32 and
+    with bf16 statistics) and eval coefficients, with and without the
+    residual and the ReLU: within one ulp of y in x's dtype (and one of
+    the output after the residual add); the train statistics it writes
+    within f32 rounding; one launch each, x and the residual untouched."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (0.5 + 1.5 * torch.randn((R, C), device="cuda", generator=gen)) \
+            .to(dtype)
+        r = torch.randn((R, C), device="cuda", generator=gen).to(dtype)
+        scale = 1 + 0.2 * torch.randn(C, device="cuda", generator=gen)
+        bias = 0.1 * torch.randn(C, device="cuda", generator=gen)
+        x0, r0 = x.clone(), r.clone()
+        for kind in ACT_COEFFS:
+            u, v, n, rs = _act_coeffs(x, kind, gen)
+            y, _ = bn._act_plain(x, scale, bias, 1e-5, u, v, n, rs,
+                                 relu=False)
+            for res in (None, r):
+                for relu in (False, True):
+                    before = bn_triton.ACT_LAUNCHES
+                    got, stats = bn_triton.bn_act(x, scale, bias, 1e-5, u, v,
+                                                  n, rs, res, relu)
+                    torch.cuda.synchronize()
+                    assert bn_triton.ACT_LAUNCHES == before + 1
+                    want, want_stats = bn._act_plain(
+                        x, scale, bias, 1e-5, u, v, n, rs, res, relu)
+                    assert got.dtype == dtype and got.shape == (R, C)
+                    err = (got.float() - want.float()).abs()
+                    tol = _ulp(y.float(), dtype) + (0 if res is None else _ulp(
+                        torch.maximum(got.float().abs(), want.float().abs()),
+                        dtype))
+                    assert bool((err <= tol).all()), (
+                        dtype, kind, res is not None, relu, err.max().item())
+                    if n is None:
+                        assert stats is None and want_stats is None
+                        continue
+                    mean, var, inv, d = want_stats
+                    for g, w, mag in zip(stats, want_stats,
+                                         (mean, var, inv, v / n)):
+                        assert bool(((g - w).abs() <= 2.0 ** -21
+                                     * mag.abs()).all()), kind
+        assert torch.equal(x, x0) and torch.equal(r, r0)
+
+
+def test_bn_act_passes_nan(gen):
+    """A NaN in x or in the residual comes out as NaN through the ReLU,
+    as F.relu passes it; the other elements are the plain version's."""
+    R, C = 4096, 64
+    x = torch.randn((R, C), device="cuda", generator=gen).to(torch.bfloat16)
+    r = torch.randn((R, C), device="cuda", generator=gen).to(torch.bfloat16)
+    x[3, 5] = float("nan")
+    r[7, 9] = float("nan")
+    ones, zeros = torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")
+    for u, v, n in ((zeros, ones, None), (zeros, ones * R, R)):
+        for res in (None, r):
+            got, _ = bn_triton.bn_act(x, ones, zeros, 1e-5, u, v, n,
+                                      residual=res)
+            want, _ = bn._act_plain(x, ones, zeros, 1e-5, u, v, n,
+                                    residual=res)
+            nan = torch.isnan(want)
+            assert torch.equal(torch.isnan(got), nan)
+            assert bool(nan[3, 5]) and bool(nan[7, 9]) == (res is not None)
+            assert torch.equal(got[~nan], want[~nan])
+
+
+def test_act_allocates_only_its_output_on_the_card(gen):
+    """The forward epilogue on the card holds no f32 activation: its peak
+    above the inputs is the output (x's dtype) and a few (C,) vectors."""
+    N, C, H, W = 8, 64, 112, 112
+    x = torch.randn((N, H, W, C), device="cuda", generator=gen) \
+        .to(torch.bfloat16).permute(0, 3, 1, 2)
+    r = torch.randn((N, H, W, C), device="cuda", generator=gen) \
+        .to(torch.bfloat16).permute(0, 3, 1, 2)
+    v = [torch.rand(C, device="cuda", generator=gen) + 0.5
+         for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, stats = bn._act(x, *v[:2], 1e-5, *v[2:], N * H * W, False, r)
+    torch.cuda.synchronize()
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert out.dtype == torch.bfloat16 and len(stats) == 4
+    assert torch.cuda.max_memory_allocated() - base <= x.nbytes + 2 ** 20
+
+
 def test_dx_allocates_only_its_output_on_the_card(gen):
     """The backward epilogue on the card holds no f32 activation: its
     peak above the inputs is dx (x's dtype) and a few (C,) vectors."""
@@ -559,29 +667,53 @@ def _resnet50_step_counts(**cfg_kw):
     b = tr.put_batch(rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8),
                      ll, np.zeros((4, lm.n_classes), np.float32))
     before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES,
-              bn_triton.DX_LAUNCHES)
+              bn_triton.DX_LAUNCHES, bn_triton.ACT_LAUNCHES)
     _, loss = tr.train_step(tr.state, *b)
     torch.cuda.synchronize()
     assert np.isfinite(float(loss))
     return (bn_triton.STATS_LAUNCHES - before[0],
             bn_triton.CORR_LAUNCHES - before[1],
-            bn_triton.DX_LAUNCHES - before[2])
+            bn_triton.DX_LAUNCHES - before[2],
+            bn_triton.ACT_LAUNCHES - before[3])
 
 
 def test_remat_step_launch_counts(gen):
-    """A ResNet-50 step with remat: K1 53 + 52 times (the 52 block
-    BatchNorms recompute their forward in the backward pass; the stem's
-    does not), K2 and the dx kernel 53 times (the backward runs once)."""
-    assert _resnet50_step_counts(remat=True) == (105, 53, 53)
-    assert _resnet50_step_counts() == (53, 53, 53)
+    """A ResNet-50 step with remat: K1 and the act kernel 53 + 52 times
+    (the 52 block BatchNorms recompute their forward in the backward
+    pass; the stem's does not), K2 and the dx kernel 53 times (the
+    backward runs once)."""
+    assert _resnet50_step_counts(remat=True) == (105, 53, 53, 105)
+    assert _resnet50_step_counts() == (53, 53, 53, 53)
 
 
 def test_flax_route_launches_no_bn_kernel(gen):
-    """The flax route launches none of the three; its ghost statistics
+    """The flax route launches none of the four; its ghost statistics
     (which take the port's route) launch each once a BatchNorm."""
-    assert _resnet50_step_counts(bn_impl="flax") == (0, 0, 0)
+    assert _resnet50_step_counts(bn_impl="flax") == (0, 0, 0, 0)
     assert _resnet50_step_counts(bn_impl="flax", bn_stats_rows=2) == (
-        53, 53, 53)
+        53, 53, 53, 53)
+
+
+def test_eval_forward_launches_the_act_kernel_once_a_batch_norm(gen):
+    """A ResNet-50 eval step (no gradient) launches the act kernel once a
+    BatchNorm with the running statistics, and no other BN kernel; its
+    scores are finite."""
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.parallel import programs
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig, ClassifierTrainer)
+
+    lm = toy_labelmap(2, 3)
+    tr = ClassifierTrainer(lm, ClassifierConfig(
+        backbone="resnet50", image_size=64, batch_size=4, device="cuda"))
+    b = tr.put_batch(*_cls_batch(lm, 4, 64, 0))
+    programs.reset_counts()
+    loss, scores = tr.eval_step(tr.state, *b)
+    torch.cuda.synchronize()
+    c = programs.counts()
+    assert (c["bn_stats"], c["bn_corr"], c["bn_dx"], c["bn_act"]) == (
+        0, 0, 0, 53)
+    assert bool(torch.isfinite(scores).all()) and np.isfinite(float(loss))
 
 
 def _cls_batch(lm, B, size, seed):
@@ -642,8 +774,9 @@ def test_two_gloo_ranks_on_the_card_match_one_process(gen, tmp_path):
             assert c["collective_bn_stats"] == c["collective_bn_corr"] == 20
             want_k1 = {"fused": 20, "ghost": 20 if rank == 0 else 0,
                        "flax": 0}[name]
-            assert (c["bn_stats"], c["bn_corr"], c["bn_dx"]) == (
-                want_k1, *(0 if name == "flax" else 20,) * 2), (name, rank)
+            assert (c["bn_stats"], c["bn_corr"], c["bn_dx"],
+                    c["bn_act"]) == (
+                want_k1, *(0 if name == "flax" else 20,) * 3), (name, rank)
 
 
 def test_k3_tiles_on_a_mesh_equal_the_whole(gen, tmp_path):
@@ -825,6 +958,7 @@ def test_vit_train_step_launch_counts(gen, remat):
     assert np.isfinite(float(loss))
     c = programs.counts()
     assert c["attention"] == (72 if remat else 48)
-    assert (c["bn_stats"], c["bn_corr"], c["bn_dx"]) == (0, 0, 0)
+    assert (c["bn_stats"], c["bn_corr"], c["bn_dx"], c["bn_act"]) == (
+        0, 0, 0, 0)
     loss, scores = tr.eval_step(tr.state, *b)
     assert bool(torch.isfinite(scores).all()) and np.isfinite(float(loss))

@@ -101,3 +101,59 @@ def test_train_logits_and_running_stats_match(pair):
     for k in names:
         np.testing.assert_allclose(have[k].numpy(), want[k].numpy(),
                                    rtol=rtol, atol=atol, err_msg=k)
+
+
+def _chain(act, self, x, residual, relu):
+    """``BatchNormBase.act`` as the unfused chain the trunks ran before it:
+    the BatchNorm alone (`act` without residual or ReLU), then the
+    residual add and ``F.relu``."""
+    y = act(self, x, None, False)
+    if residual is not None:
+        y = y + residual
+    return torch.nn.functional.relu(y) if relu else y
+
+
+def _trunk_step(backbone, kw):
+    """Features, every parameter's gradient and the running statistics of
+    one f32 train-mode forward and backward of a small trunk."""
+    from learning_embeddings_tpu_torch.models.resnet import (init_params_,
+                                                             make_trunk)
+
+    g = torch.Generator().manual_seed(3)
+    trunk = make_trunk(backbone, dtype=torch.float32, **kw)
+    init_params_(trunk, g)
+    with torch.no_grad():
+        for name, p in trunk.named_parameters():
+            if p.ndim == 1:   # BatchNorm scales and biases off 1 and 0
+                p.add_(0.2 * torch.randn(p.shape, generator=g))
+    trunk.to(memory_format=torch.channels_last).train()
+    x = torch.rand((4, 3, 32, 32), generator=g).contiguous(
+        memory_format=torch.channels_last)
+    feats = trunk(x)
+    (feats * torch.linspace(-1, 1, feats.shape[1])).sum().backward()
+    return ([feats.detach()]
+            + [p.grad for p in trunk.parameters()]
+            + [b for n, b in trunk.named_buffers() if "running" in n])
+
+
+@pytest.mark.parametrize("backbone,kw", [
+    ("resnet18", {}), ("resnet50", {"remat": True}), ("vgg11_bn", {}),
+    ("resnet18", {"bn_stats_rows": 2, "bn_stats_dtype": "bfloat16"})],
+    ids=["basic_block", "bottleneck_remat", "vgg11_bn", "basic_ghost_bf16"])
+def test_trunks_through_act_equal_the_unfused_chain(monkeypatch, backbone,
+                                                    kw):
+    """BasicBlock (ResNet-18), Bottleneck with remat (ResNet-50), VGG11BN
+    and the ghost bf16-statistics route: the features, every gradient and
+    the running statistics of a train step through the BatchNorms'
+    ``act`` (the fused Functions) equal those of the chain they replaced,
+    bit for bit."""
+    from learning_embeddings_tpu_torch.ops.bn import BatchNormBase
+
+    fused = _trunk_step(backbone, kw)
+    act = BatchNormBase.act
+    monkeypatch.setattr(BatchNormBase, "act", lambda self, x, residual=None,
+                        relu=True: _chain(act, self, x, residual, relu))
+    chain = _trunk_step(backbone, kw)
+    assert len(fused) == len(chain)
+    for i, (a, b) in enumerate(zip(fused, chain)):
+        assert torch.equal(a, b), i

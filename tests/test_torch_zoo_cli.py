@@ -64,9 +64,9 @@ def _ghost_layers(monkeypatch):
     seen = []
     fwd = bn.GhostBatchNorm._train
 
-    def counted(self, x):
+    def counted(self, *args):
         seen.append((self.stats_rows, self.stats_dtype))
-        return fwd(self, x)
+        return fwd(self, *args)
     monkeypatch.setattr(bn.GhostBatchNorm, "_train", counted)
     return seen
 
