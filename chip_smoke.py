@@ -752,6 +752,7 @@ def check_k3(M, N, D, gen, timed):
     import torch
 
     from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+    from learning_embeddings_tpu_torch.utils import profiling
 
     def ints(n):
         return torch.randint(-3, 4, (n, D), device=DEV, generator=gen) \
@@ -759,10 +760,11 @@ def check_k3(M, N, D, gen, timed):
 
     route = k3.route_for(D)
     ui, vi = ints(M), ints(N)
-    before = (k3.EXACT_D_LAUNCHES, k3.GENERIC_LAUNCHES)
+    before = profiling.counts()
     got, exact = k3.pairwise_order(ui, vi), k3.pairwise_order_plain(ui, vi)
-    ran = "exact_d" if k3.EXACT_D_LAUNCHES > before[0] else (
-        "generic" if k3.GENERIC_LAUNCHES > before[1] else None)
+    launched = profiling.counts() - before
+    ran = "exact_d" if launched["pairwise_order_exact_d"] else (
+        "generic" if launched["pairwise_order_generic"] else None)
     if ran != route:
         raise AssertionError(f"pairwise_order {(M, N, D)} launched {ran}, "
                              f"expected {route}")
@@ -1136,10 +1138,10 @@ def small_hyp_joint_phase(image_size=64):
 def slice_phase(labelmap, batch, steps=3, warmup=2):
     import torch
 
-    from learning_embeddings_tpu_torch.ops import bn, bn_triton
     from learning_embeddings_tpu_torch.ops.bn import FusedBatchNorm
     from learning_embeddings_tpu_torch.train.classifier import (
         ClassifierConfig, ClassifierTrainer)
+    from learning_embeddings_tpu_torch.utils import profiling
 
     cfg = ClassifierConfig(backbone="resnet50", criterion="multi_level_ce",
                            optimizer="adam", lr=1e-5, image_size=448,
@@ -1165,7 +1167,7 @@ def slice_phase(labelmap, batch, steps=3, warmup=2):
                                     inp[0].shape[1]))) for m in bns]
 
     # the main path: counts set to 0 just before, read just after
-    _reset_counts()
+    profiling.reset_counts()
     state, losses = trainer.state, []
     for i in range(warmup):
         state, loss = trainer.train_step(state, *batch_t)
@@ -1181,11 +1183,10 @@ def slice_phase(labelmap, batch, steps=3, warmup=2):
         losses.append(loss)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"bn_stats": bn_triton.STATS_LAUNCHES,
-                "bn_corr": bn_triton.CORR_LAUNCHES,
-                "bn_dx": bn_triton.DX_LAUNCHES,
-                "bn_act": bn_triton.ACT_LAUNCHES}
-    copies = bn.CHANNELS_LAST_COPIES
+    counted = profiling.counts()
+    launches = {k: counted[k] for k in ("bn_stats", "bn_corr", "bn_dx",
+                                        "bn_act")}
+    copies = counted["channels_last_copies"]
 
     want = sorted((R * batch, C) for (R, C), n in RESNET50_448_BN.items()
                   for _ in range(n))
@@ -1301,31 +1302,6 @@ def _unique_tower_images(prepared, n_labels):
     return int(len(np.unique(ids[ids >= n_labels])))
 
 
-def _reset_counts():
-    from learning_embeddings_tpu_torch.ops import bn, bn_triton
-    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
-
-    bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
-    bn_triton.STATS_ROUNDED_LAUNCHES = bn_triton.DX_LAUNCHES = 0
-    bn_triton.ACT_LAUNCHES = 0
-    k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0
-    bn.CHANNELS_LAST_COPIES = 0
-
-
-def _read_counts():
-    from learning_embeddings_tpu_torch.ops import bn_triton
-    from learning_embeddings_tpu_torch.ops import pairwise_order as k3
-
-    return {"bn_stats": bn_triton.STATS_LAUNCHES,
-            "bn_stats_rounded": bn_triton.STATS_ROUNDED_LAUNCHES,
-            "bn_corr": bn_triton.CORR_LAUNCHES,
-            "bn_dx": bn_triton.DX_LAUNCHES,
-            "bn_act": bn_triton.ACT_LAUNCHES,
-            "pairwise_order": k3.LAUNCHES,
-            "pairwise_order_exact_d": k3.EXACT_D_LAUNCHES,
-            "pairwise_order_generic": k3.GENERIC_LAUNCHES}
-
-
 def _split_paths(labelmap, n, rng):
     """(n, L) global ancestor paths of n synthetic images of random
     leaves."""
@@ -1353,6 +1329,7 @@ def joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
     from learning_embeddings_tpu_torch.ops import pairwise_order as k3
     from learning_embeddings_tpu_torch.train.joint_cnn import (
         JointCNNConfig, JointCNNTrainer)
+    from learning_embeddings_tpu_torch.utils import profiling
 
     nl = labelmap.n_classes
     rng = np.random.RandomState(0)
@@ -1389,7 +1366,7 @@ def joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
 
     # the main path, training and eval: counts set to 0 just before,
     # read just after
-    _reset_counts()
+    profiling.reset_counts()
     losses = []
     warmed = set()
     for p in prepared[:warmup]:
@@ -1434,7 +1411,7 @@ def joint_phase(labelmap, image_size=448, batch=16, n_train=2048,
                                    threshold=trainer.optimal_threshold)
     ev["test_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = _read_counts()
+    launches = profiling.counts()
 
     losses = [float(l) for l in losses]
     if not all(map(math.isfinite, losses)):
@@ -1546,6 +1523,7 @@ def label_only_phase(labelmap, epochs=5):
     from learning_embeddings_tpu_torch.ops import pairwise_order as k3
     from learning_embeddings_tpu_torch.train.embedding import (
         EmbeddingTrainer, EmbeddingTrainerConfig)
+    from learning_embeddings_tpu_torch.utils import profiling
 
     splits = split_edges(label_graph_from_paths(labelmap.leaf_paths(),
                                                 labelmap),
@@ -1558,7 +1536,7 @@ def label_only_phase(labelmap, epochs=5):
                                      embedding_dim=EMB_DIM, batch_size=8,
                                      neg_to_pos_ratio=5, alpha=0.05, lr=1e-3,
                                      seed=0, device=DEV)
-        _reset_counts()
+        profiling.reset_counts()
         trainer = EmbeddingTrainer(labelmap, splits, cfg)
         epoch_s, stats = [], []
         for _ in range(epochs):
@@ -1571,7 +1549,7 @@ def label_only_phase(labelmap, epochs=5):
         rec = trainer.reconstruction()
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
-        launches = _read_counts()
+        launches = profiling.counts()
 
         steps = len(splits.train) // cfg.batch_size
         f1 = {"val": float(val.f1), "test": float(test.f1),
@@ -1654,12 +1632,14 @@ def _run_path(name, fn, paths):
     just after (into paths[name]); returns (fn(), seconds)."""
     import torch
 
-    _reset_counts()
+    from learning_embeddings_tpu_torch.utils import profiling
+
+    profiling.reset_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    paths[name] = _read_counts()
+    paths[name] = profiling.counts()
     return out, seconds
 
 
@@ -2375,6 +2355,7 @@ def fc7_step_phase(labelmap, n_images=ETHEC_TRAIN_IMAGES, steps=500,
 
     from learning_embeddings_tpu_torch.train.joint import (
         JointEmbeddingTrainer)
+    from learning_embeddings_tpu_torch.utils import profiling
 
     # the phase's own memory: its peak above what earlier phases hold
     torch.cuda.synchronize()
@@ -2384,7 +2365,7 @@ def fc7_step_phase(labelmap, n_images=ETHEC_TRAIN_IMAGES, steps=500,
     graph, edges = _fc7_graph(labelmap, n_images)
     feats = _fc7_features(n_images, gen)
     cfg = _fc7_cfg("hyp_cone", "adam")
-    _reset_counts()
+    profiling.reset_counts()
     trainer = JointEmbeddingTrainer(labelmap, graph, edges, feats, cfg)
     bs = cfg.batch_size
     order = edges[np.random.RandomState(0).permutation(len(edges))]
@@ -2398,7 +2379,7 @@ def fc7_step_phase(labelmap, n_images=ETHEC_TRAIN_IMAGES, steps=500,
         losses.append(trainer.train_batch(e[i, :, 0], e[i, :, 1])[0])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _read_counts()
+    launches = profiling.counts()
     peak = (torch.cuda.max_memory_allocated() - before) / 2**30
     losses = [float(x) for x in torch.stack(losses).cpu()]
     if not all(map(math.isfinite, losses)):
@@ -2485,6 +2466,7 @@ def fc7_epoch_phase(labelmap, n_images=2048, n_val=VAL_IMAGES,
     from learning_embeddings_tpu_torch.ops import pairwise_order as k3
     from learning_embeddings_tpu_torch.train.joint import (
         JointEmbeddingTrainer)
+    from learning_embeddings_tpu_torch.utils import profiling
 
     gen = torch.Generator(device=DEV).manual_seed(1)
     graph, edges = _fc7_graph(labelmap, n_images)
@@ -2498,14 +2480,14 @@ def fc7_epoch_phase(labelmap, n_images=2048, n_val=VAL_IMAGES,
     for energy, opt in FC7_RUNS:
         name = f"fc7_epoch_{energy}_{opt}"
         cfg = _fc7_cfg(energy, opt)
-        _reset_counts()
+        profiling.reset_counts()
         trainer = JointEmbeddingTrainer(labelmap, graph, edges, feats, cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stats = trainer.train_epoch(0, np.random.RandomState(0))
         epoch_s = time.perf_counter() - t0
         m, sec = _fc7_eval(trainer, splits)
-        paths[name] = launches = _read_counts()
+        paths[name] = launches = profiling.counts()
 
         scal = [stats["loss"], stats["e_pos_mean"], stats["e_neg_mean"]] + [
             float(v) for k in ("val_edge", "test_edge", "reconstruction")
@@ -2934,7 +2916,6 @@ def other_datasets_phase(image_size=224, batch=8):
 
     from learning_embeddings_tpu_torch.cli import cifar, fashion_mnist
     from learning_embeddings_tpu_torch.data import workloads
-    from learning_embeddings_tpu_torch.ops import bn
 
     paths, out = {}, {"runs": {}}
     n_bn, _ = BACKBONE_BN_FEATURES["resnet18"]
@@ -2950,8 +2931,8 @@ def other_datasets_phase(image_size=224, batch=8):
                 os.path.join(EXPERIMENTS, "no_dataset"), "--device", DEV,
                 *extra]
         res, seconds = _run_path(name, lambda: main(argv), paths)
-        copies = bn.CHANNELS_LAST_COPIES
         launches = paths[name]
+        copies = launches["channels_last_copies"]
         labels = workloads.synthetic_array_dataset(lm, 600).leaf_labels
         steps = len(workloads.stratified_index_split(labels)[0]) // batch
         if res["train_steps"] != steps:
@@ -3182,6 +3163,7 @@ def small_zoo_phase(image_size=64, batch=8):
     from learning_embeddings_tpu_torch.models import (HierarchicalCNN,
                                                       init_params_)
     from learning_embeddings_tpu_torch.ops.image import device_scale
+    from learning_embeddings_tpu_torch.utils import profiling
 
     rng = np.random.RandomState(0)
     imgs = torch.from_numpy(rng.randint(0, 256, (batch, image_size,
@@ -3204,12 +3186,12 @@ def small_zoo_phase(image_size=64, batch=8):
                 model.to(device=dev, memory_format=torch.channels_last)
                 model.train().zero_grad()
                 x = device_scale(imgs.to(dev)).permute(0, 3, 1, 2)
-                _reset_counts()
+                profiling.reset_counts()
                 logits = model(x)
                 (logits * w.to(dev)).sum().backward()
                 if dev == DEV:
                     torch.cuda.synchronize()
-                res[dev] = (logits.detach().cpu(), _read_counts())
+                res[dev] = (logits.detach().cpu(), profiling.counts())
             (card, counts), (cpu, _) = res[DEV], res["cpu"]
             rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
             limit = 1e-2 if "bf16" in name else 1e-5
@@ -3242,9 +3224,9 @@ def zoo_step_phase(labelmap, name, cfg_kw, want, batch, backbone="resnet50",
     memory, above what was allocated before the trainer was built too."""
     import torch
 
-    from learning_embeddings_tpu_torch.ops import bn
     from learning_embeddings_tpu_torch.train.classifier import (
         ClassifierConfig, ClassifierTrainer)
+    from learning_embeddings_tpu_torch.utils import profiling
 
     base_gib = torch.cuda.memory_allocated() / 2**30
     cfg = ClassifierConfig(backbone=backbone, criterion="multi_level_ce",
@@ -3261,7 +3243,7 @@ def zoo_step_phase(labelmap, name, cfg_kw, want, batch, backbone="resnet50",
     batch_t = trainer.put_batch(images, paths[leaves],
                                 torch.zeros((batch, labelmap.n_classes),
                                             device=DEV))
-    _reset_counts()
+    profiling.reset_counts()
     state, losses = trainer.state, []
     for _ in range(warmup):
         state, loss = trainer.train_step(state, *batch_t)
@@ -3274,8 +3256,8 @@ def zoo_step_phase(labelmap, name, cfg_kw, want, batch, backbone="resnet50",
         losses.append(loss)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _read_counts()
-    copies = bn.CHANNELS_LAST_COPIES
+    launches = profiling.counts()
+    copies = launches["channels_last_copies"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(l) for l in losses]
     n_steps = warmup + steps
@@ -3365,6 +3347,7 @@ def zoo_joint_step(labelmap, tag, cfg_kw, want, image_size=448, batch=16,
         build_joint_graph)
     from learning_embeddings_tpu_torch.train.joint_cnn import (
         JointCNNConfig, JointCNNTrainer)
+    from learning_embeddings_tpu_torch.utils import profiling
 
     nl = labelmap.n_classes
     rng = np.random.RandomState(0)
@@ -3386,7 +3369,7 @@ def zoo_joint_step(labelmap, tag, cfg_kw, want, image_size=448, batch=16,
     prepared = [trainer.prepare_batch(*edges[i * batch:(i + 1) * batch].T)
                 for i in range(warmup + steps)]
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counts()
     losses = [trainer.train_prepared(p)[0] for p in prepared[:warmup]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3394,7 +3377,7 @@ def zoo_joint_step(labelmap, tag, cfg_kw, want, image_size=448, batch=16,
     losses += [trainer.train_prepared(p)[0] for p in prepared[warmup:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _read_counts()
+    launches = profiling.counts()
     losses = [float(l) for l in losses]
     n_steps = len(losses)
     per_step = {k: launches[k] / n_steps for k in ("bn_stats", "bn_corr")}

@@ -116,12 +116,12 @@ def dryrun_multichip(n_devices: int, device="cuda",
 def _dryrun_rank(device) -> dict:
     from .hierarchy import label_graph_from_paths, split_edges
     from .losses.joint_sampling import build_joint_graph
-    from .parallel import mesh as pmesh
     from .parallel.mesh import make_mesh
     from .train.classifier import ClassifierConfig, ClassifierTrainer
     from .train.embedding import EmbeddingTrainer, EmbeddingTrainerConfig
     from .train.joint import JointEmbeddingTrainer, JointTrainerConfig
     from .train.joint_cnn import JointCNNConfig, JointCNNTrainer
+    from .utils import profiling
 
     n = torch.distributed.get_world_size()
     labelmap = ethec_labelmap()
@@ -170,13 +170,13 @@ def _dryrun_rank(device) -> dict:
             image_size=64, batch_size=2 * n, seed=0, spatial_partition=True,
             grad_accum=2, device=device), mesh=mesh)
         sp_batch = sp.put_batch(images, ll, multihot)
-        before = dict(pmesh.COLLECTIVES)
+        before = profiling.counts()
         sp.state, sp_loss = sp.train_step(sp.state, *sp_batch)
         sp.state, sp_loss = sp.train_step(sp.state, *sp_batch)
         summary["spatial_grad_accum"] = round(float(sp_loss), 4)
-        summary["spatial_halos"] = {
-            k: pmesh.COLLECTIVES[k] - before.get(k, 0)
-            for k in ("halo", "halo_grad")}
+        halos = profiling.counts() - before
+        summary["spatial_halos"] = {k: halos["collective_" + k]
+                                    for k in ("halo", "halo_grad")}
         say(f"spatial-partition + grad-accum loss={float(sp_loss):.4f} ok "
             f"(halo exchanges a rank {summary['spatial_halos']})")
         del sp, sp_batch

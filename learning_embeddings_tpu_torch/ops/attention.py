@@ -12,13 +12,14 @@ the one attention op of the port (``models/vit.py``).
 * On the CPU it is the plain math: the scores and the softmax in f32,
   the result rounded once to q's dtype, differentiated by autograd.
 
-Every call counts in ``LAUNCHES``: one for the forward and one for its
-backward, so a ViT-L/16 train step counts 48 (72 with ``remat``, whose
-recomputed forward counts again). While a ``torch.profiler`` records,
-the forward runs in the device span "attention.fwd" and the backward in
-"attention.bwd" (``utils/profiling.py``): the backward's span opens in
-the autograd node after the output and closes in the one before the
-inputs, so it encloses the attention's own backward node.
+Every call counts as "attention" (``utils/profiling.py``'s ``count``):
+one for the forward and one for its backward, so a ViT-L/16 train step
+counts 48 (72 with ``remat``, whose recomputed forward counts again).
+While a ``torch.profiler`` records, the forward runs in the device span
+"attention.fwd" and the backward in "attention.bwd"
+(``utils/profiling.py``): the backward's span opens in the autograd node
+after the output and closes in the one before the inputs, so it
+encloses the attention's own backward node.
 """
 
 from __future__ import annotations
@@ -30,15 +31,7 @@ from torch.autograd import profiler as _autograd_profiler
 
 from ..utils import profiling
 
-__all__ = ["attention", "LAUNCHES"]
-
-#: forward and backward calls of ``attention`` in this process
-LAUNCHES = 0
-
-
-def _count() -> None:
-    global LAUNCHES
-    LAUNCHES += 1
+__all__ = ["attention"]
 
 
 def _math(q, k, v):
@@ -73,7 +66,7 @@ class _BackwardStarts(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        _count()
+        profiling.count("attention")
         if _autograd_profiler._is_profiler_enabled:
             ctx.box.span = profiling.span("attention.bwd", g.device)
             ctx.box.span.__enter__()
@@ -106,7 +99,7 @@ def attention(q: torch.Tensor, k: torch.Tensor,
         t.requires_grad for t in (q, k, v))
     if grad:
         q, k, v = _BackwardEnds.apply(q, k, v, box)
-    _count()
+    profiling.count("attention")
     out = profiling.in_device_span(
         "attention.fwd", q.device,
         _fused if q.device.type == "cuda" else _math, q, k, v)

@@ -21,9 +21,7 @@ first, then ``bn_impl``.
   bf16 array does. Its gradient is the JAX package's autodiff written
   out: ``_corr`` over all R rows (every row's dy reaches the statistics
   through a and b), the mean and variance terms back into the prefix rows
-  only, and none through ``max(var, 0)`` where it clamps. Its dx is the
-  same ``_dx`` as the fused route's, with a row limit; its forward the
-  same ``_act``.
+  only, and none through ``max(var, 0)`` where it clamps.
 * ``FlaxBatchNorm`` (``bn_impl='flax'``): the library's train-mode
   BatchNorm (``F.batch_norm``, whose kernels PyTorch picks: ATen's
   channels_last ones for the bf16 trunk on the card), as the JAX package's
@@ -31,6 +29,13 @@ first, then ``bn_impl``.
   residual add and ReLU. It launches no kernel of this repo in train
   mode. Its running statistics move with the biased variance (see
   ``_library_batch_norm_train``).
+
+The fused and the ghost route are one autograd Function
+(``_BatchNormTrain``): the fused route is the ghost route over all rows
+in f32, save the backward's slope of ``max(var, 0)``: 1 everywhere on
+the fused route, as the JAX ``batch_norm_train``'s custom VJP (no
+clamp), and ``jnp.maximum``'s on the ghost route (½ at the clamp, 0
+below), as JAX's autodiff of ``GhostBatchNorm``.
 
 The activation: a module's ``act(x, residual, relu)`` is relu(bn(x) +
 residual) (the add with a residual, the ReLU with `relu`), which the
@@ -60,14 +65,14 @@ Same function as the JAX package computes:
 Layout: channels sit at dim 1 (PyTorch's NCHW order), and the kernels read
 each activation as a row-major (R = N·H·W, C) matrix, which is a free view
 of a channels_last tensor. Any other layout costs an explicit copy, counted
-in ``CHANNELS_LAST_COPIES``.
+as "channels_last_copies" (``utils/profiling.py``'s ``count``).
 
 On a mesh (``group``: a process group of ``parallel/mesh.py``; None is
 one device) the statistics are those of the global batch, as GSPMD's
 all-reduce makes them in the JAX package: each rank runs K1 / K2 on its
 own rows, the f32 (2, C) sums are all-reduced over the group (one
-``all_reduce`` per BN layer and pass, counted as "bn_stats" / "bn_corr"
-in ``parallel.mesh.COLLECTIVES``), and the epilogue runs on the global
+``all_reduce`` per BN layer and pass, counted as "collective_bn_stats" /
+"collective_bn_corr"), and the epilogue runs on the global
 sums, so the running statistics are equal on every rank. The gradient of
 the scale and bias is this rank's share (the trainer's gradient
 all-reduce adds the shares); dx takes the global sums. Each layer has its
@@ -105,16 +110,12 @@ from ..utils import profiling
 
 __all__ = ["batch_norm_train", "ghost_batch_norm_train", "BatchNormBase",
            "FusedBatchNorm", "GhostBatchNorm", "FlaxBatchNorm", "make_norm",
-           "set_batch_norm_group", "BN_IMPLS", "BN_STATS_DTYPES",
-           "CHANNELS_LAST_COPIES"]
+           "set_batch_norm_group", "BN_IMPLS", "BN_STATS_DTYPES"]
 
 #: the train-mode BatchNorm routes a trunk can take (``bn_impl``)
 BN_IMPLS = ("pallas", "flax")
 #: dtypes of the train-mode statistics (``bn_stats_dtype``)
 BN_STATS_DTYPES = ("float32", "bfloat16")
-
-#: channels_last copies made to view an input as an (R, C) matrix
-CHANNELS_LAST_COPIES = 0
 
 
 def _stats_plain(x2, round_sq=False):
@@ -161,11 +162,10 @@ def _summed(group, tag, *sums):
 
 def _channel_minor(t):
     """`t` with its channels (dim 1) innermost in memory; copies (and
-    counts the copy) when they are not."""
-    global CHANNELS_LAST_COPIES
+    counts the copy as "channels_last_copies") when they are not."""
     if t.movedim(1, -1).is_contiguous():
         return t
-    CHANNELS_LAST_COPIES += 1
+    profiling.count("channels_last_copies")
     return t.movedim(1, -1).contiguous().movedim(-1, 1)
 
 
@@ -298,53 +298,13 @@ def _relu_mask(dy, out):
 
 
 class _BatchNormTrain(torch.autograd.Function):
+    """The fused and ghost routes' train-mode BatchNorm: `stats_rows`,
+    `round_bf16` and `clamp_slope` are the route's statistics spec, which
+    ``batch_norm_train`` and ``ghost_batch_norm_train`` fix."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, group, residual, relu):
-        x = _channel_minor(x)
-        x2 = _rows(x)
-        R = x2.shape[0] * group_size(group)
-        s, q = _summed(group, "bn_stats", *_stats(x2))
-        y, (mean, var, inv, _) = profiling.in_device_span(
-            "bn.fwd_epilogue", x.device, _act, x, scale, bias, eps, s, q, R,
-            False, residual, relu)
-        ctx.save_for_backward(x, scale, mean, inv, y if relu else None)
-        ctx.group = group
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
-
-    @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
-        # the statistics are consumed without gradient (running averages)
-        x, scale, mean, inv, out = ctx.saved_tensors
-        dy = _relu_mask(_channel_minor(dy), out)
-        rows = x.numel() // x.shape[1]
-        sdy_own, sdyx_own = _corr(_rows(dy), _rows(x))
-        sdy, sdyx = _summed(ctx.group, "bn_corr", sdy_own, sdyx_own)
-        return profiling.in_device_span(
-            "bn.bwd_epilogue", x.device, _dx, dy, x, scale, mean, inv, sdy,
-            sdyx, sdy_own, sdyx_own, rows * group_size(ctx.group),
-            rows) + (None, None, dy if ctx.needs_input_grad[5] else None,
-                     None)
-
-
-def batch_norm_train(x, scale, bias, eps: float = 1e-5, group=None,
-                     residual=None, relu: bool = False):
-    """Train-mode batch norm of x (N, C, ...) over all axes but dim 1, and
-    over the ranks of `group` (None: this device's rows only), then
-    `residual` (x's shape and dtype) added and a ReLU with `relu`.
-
-    Returns (y, mean, var): biased variance, f32 statistics, y in x.dtype
-    and in x's channel-minor layout. mean and var carry no gradient."""
-    return _BatchNormTrain.apply(x, scale, bias, eps, group, residual,
-                                 bool(relu))
-
-
-class _GhostBatchNormTrain(torch.autograd.Function):
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, eps, stats_rows, round_bf16, group,
-                parts, residual, relu):
+    def forward(ctx, x, scale, bias, residual, relu, eps, group, parts,
+                stats_rows, round_bf16, clamp_slope):
         x = _channel_minor(x)
         n_img = x.shape[0]
         # the prefix of the global batch; this rank holds (its `parts`-th
@@ -367,7 +327,8 @@ class _GhostBatchNormTrain(torch.autograd.Function):
         y, (mean, var, inv, d) = profiling.in_device_span(
             "bn.fwd_epilogue", x.device, _act, x, scale, bias, eps, s, q, n,
             round_bf16, residual, relu)
-        ctx.save_for_backward(x, scale, mean, inv, d, y if relu else None)
+        ctx.save_for_backward(x, scale, mean, inv,
+                              d if clamp_slope else None, y if relu else None)
         ctx.r_pre, ctx.n, ctx.round_bf16 = xs2.shape[0], n, round_bf16
         ctx.group = group
         ctx.mark_non_differentiable(mean, var)
@@ -375,15 +336,28 @@ class _GhostBatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
+        # the statistics are consumed without gradient (running averages)
         x, scale, mean, inv, d, out = ctx.saved_tensors
         dy = _relu_mask(_channel_minor(dy), out)
         sdy_own, sdyx_own = _corr(_rows(dy), _rows(x))    # over all R rows
         sdy, sdyx = _summed(ctx.group, "bn_corr", sdy_own, sdyx_own)
-        return profiling.in_device_span(
+        dx, dscale, dbias = profiling.in_device_span(
             "bn.bwd_epilogue", x.device, _dx, dy, x, scale, mean, inv, sdy,
-            sdyx, sdy_own, sdyx_own, ctx.n, ctx.r_pre, d,
-            ctx.round_bf16) + (None,) * 5 + (
-                dy if ctx.needs_input_grad[8] else None, None)
+            sdyx, sdy_own, sdyx_own, ctx.n, ctx.r_pre, d, ctx.round_bf16)
+        return (dx, dscale, dbias, dy if ctx.needs_input_grad[3] else None,
+                ) + (None,) * 7
+
+
+def batch_norm_train(x, scale, bias, eps: float = 1e-5, group=None,
+                     residual=None, relu: bool = False):
+    """Train-mode batch norm of x (N, C, ...) over all axes but dim 1, and
+    over the ranks of `group` (None: this device's rows only), then
+    `residual` (x's shape and dtype) added and a ReLU with `relu`.
+
+    Returns (y, mean, var): biased variance, f32 statistics, y in x.dtype
+    and in x's channel-minor layout. mean and var carry no gradient."""
+    return _BatchNormTrain.apply(x, scale, bias, residual, bool(relu), eps,
+                                 group, 1, 0, False, False)
 
 
 def ghost_batch_norm_train(x, scale, bias, eps: float = 1e-5,
@@ -401,9 +375,9 @@ def ghost_batch_norm_train(x, scale, bias, eps: float = 1e-5,
     if stats_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"stats_dtype must be float32 or bfloat16, got "
                          f"{stats_dtype}")
-    return _GhostBatchNormTrain.apply(x, scale, bias, eps, int(stats_rows),
-                                      stats_dtype == torch.bfloat16, group,
-                                      int(parts), residual, bool(relu))
+    return _BatchNormTrain.apply(x, scale, bias, residual, bool(relu), eps,
+                                 group, int(parts), int(stats_rows),
+                                 stats_dtype == torch.bfloat16, True)
 
 
 def _own_stats(x, eps: float):

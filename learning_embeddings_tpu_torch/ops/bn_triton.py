@@ -93,10 +93,10 @@ the JAX package's ``GhostBatchNorm`` (``models/resnet.py:88-93``) need:
 each x² is rounded to bf16 before it is summed, as ``xs * xs`` rounds in
 a bf16 array, through a ``constexpr`` switch of the same kernel.
 
-Each wrapper adds one to its launch count (``STATS_LAUNCHES``,
-``CORR_LAUNCHES``, ``DX_LAUNCHES``, ``ACT_LAUNCHES``) where it launches
-its kernel, and nowhere else; a launch of the rounding variant also
-counts in ``STATS_ROUNDED_LAUNCHES``.
+Each wrapper counts its launch (``utils/profiling.py``'s ``count``, as
+"bn_stats", "bn_corr", "bn_dx", "bn_act") where it launches its kernel,
+and nowhere else; a launch of the rounding variant also counts as
+"bn_stats_rounded".
 """
 
 import contextlib
@@ -106,23 +106,14 @@ import os
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 os.environ.setdefault(
     "TRITON_CACHE_DIR",
     os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), ".torch_kernels", "triton"))
 
-__all__ = ["bn_stats", "bn_corr", "bn_dx", "bn_act", "STATS_LAUNCHES",
-           "CORR_LAUNCHES", "DX_LAUNCHES", "ACT_LAUNCHES",
-           "STATS_ROUNDED_LAUNCHES"]
-
-#: launches of the bn_stats / bn_corr / bn_dx / bn_act kernels since
-#: import (or last reset)
-STATS_LAUNCHES = 0
-CORR_LAUNCHES = 0
-DX_LAUNCHES = 0
-ACT_LAUNCHES = 0
-#: the bn_stats launches with round_sq=True (also counted in STATS_LAUNCHES)
-STATS_ROUNDED_LAUNCHES = 0
+__all__ = ["bn_stats", "bn_corr", "bn_dx", "bn_act"]
 
 #: elements of one (BLOCK_R, BLOCK_C) tile: 2 f32 accumulators of this size
 #: over 4 warps keep the register use near 130 a thread
@@ -384,20 +375,19 @@ def _launch(kernel, name: str, *ts: torch.Tensor, **constexprs):
 def bn_stats(x2: torch.Tensor, round_sq: bool = False):
     """Σx and Σx² over the rows of a CUDA (R, C) matrix, in f32; with
     `round_sq` each x² is rounded to bf16 before the sum."""
-    global STATS_LAUNCHES, STATS_ROUNDED_LAUNCHES
     stats_kernel = _kernels()[0]
     out = _launch(stats_kernel, "bn_stats", x2, ROUND_SQ=bool(round_sq))
-    STATS_LAUNCHES += 1
-    STATS_ROUNDED_LAUNCHES += bool(round_sq)
+    profiling.count("bn_stats")
+    if round_sq:
+        profiling.count("bn_stats_rounded")
     return out
 
 
 def bn_corr(dy2: torch.Tensor, x2: torch.Tensor):
     """Σdy and Σ(dy·x) over the rows of two CUDA (R, C) matrices, in f32."""
-    global CORR_LAUNCHES
     corr_kernel = _kernels()[1]
     out = _launch(corr_kernel, "bn_corr", dy2, x2)
-    CORR_LAUNCHES += 1
+    profiling.count("bn_corr")
     return out
 
 
@@ -412,7 +402,6 @@ def bn_dx(dy2, x2, scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own, n,
     the ghost route's mean and variance terms reach (x rounded to bf16
     first with `round_x`). dx goes into `out` (a new tensor like x2 if
     None), in its dtype. Returns (dx2, dscale)."""
-    global DX_LAUNCHES
     out = torch.empty_like(x2) if out is None else out
     R, C = _check("bn_dx", dy2, x2, out)
     _check_vectors("bn_dx", C, (scale,), (mean, inv, sdy, sdyx, sdy_own,
@@ -431,7 +420,7 @@ def bn_dx(dy2, x2, scale, mean, inv, sdy, sdyx, sdy_own, sdyx_own, n,
                         int(r_pre), float(n), BLOCK_R=block_r,
                         BLOCK_C=block_c, GHOST=d is not None,
                         ROUND_X=bool(round_x), num_warps=_DX_NUM_WARPS)
-    DX_LAUNCHES += 1
+    profiling.count("bn_dx")
     return out, dscale
 
 
@@ -447,7 +436,6 @@ def bn_act(x2, scale, bias, eps, u, v, n=None, round_stats=False,
     dtype. Returns (out, stats): stats the f32 (mean, var, inv, d) of
     train mode, d the variance before its clamp at 0; None in eval
     mode."""
-    global ACT_LAUNCHES
     out = torch.empty_like(x2) if out is None else out
     R, C = _check("bn_act", x2, out, *(() if residual is None
                                         else (residual,)))
@@ -473,5 +461,5 @@ def bn_act(x2, scale, bias, eps, u, v, n=None, round_stats=False,
                          ROUND_STATS=bool(round_stats),
                          RESIDUAL=residual is not None, RELU=bool(relu),
                          num_warps=_ACT_NUM_WARPS, enable_fp_fusion=False)
-    ACT_LAUNCHES += 1
+    profiling.count("bn_act")
     return out, None if stats is None else tuple(stats.unbind(0))

@@ -19,9 +19,10 @@ note on what bounds them and how their design answers that, is
     streamed through shared memory; also callable on its own as
     ``pairwise_order_generic``.
 
-  Each route counts its launches (``EXACT_D_LAUNCHES``,
-  ``GENERIC_LAUNCHES``) and ``LAUNCHES`` counts both, where a kernel is
-  launched and nowhere else.
+  Each launch counts as "pairwise_order" and as its route's
+  ("pairwise_order_exact_d", "pairwise_order_generic") in
+  ``utils/profiling.py``'s counters, where a kernel is launched and
+  nowhere else.
 * On a CPU tensor it runs ``pairwise_order_plain``, the row-blocked
   broadcast of the JAX package's ``_pairwise_order_xla`` (lines 90-103).
 
@@ -44,18 +45,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
+
 __all__ = ["pairwise_order", "pairwise_order_generic",
            "pairwise_order_plain", "route_for", "launch_plan", "tile_walk",
            "device_plan", "exact_blocks_per_sm", "LaunchPlan",
-           "build_library", "load_library", "EXACT_D_MAX", "LAUNCHES",
-           "EXACT_D_LAUNCHES", "GENERIC_LAUNCHES"]
-
-#: launches of either kernel since import (or the last reset)
-LAUNCHES = 0
-#: launches of the route "exact_d" kernel
-EXACT_D_LAUNCHES = 0
-#: launches of the route "generic" kernel
-GENERIC_LAUNCHES = 0
+           "build_library", "load_library", "EXACT_D_MAX"]
 
 #: the largest D with an instance of the "exact_d" kernel (kMaxExactD)
 EXACT_D_MAX = 16
@@ -283,7 +278,6 @@ def _f32_aligned(x: torch.Tensor) -> torch.Tensor:
 
 def _launch(u: torch.Tensor, v: torch.Tensor, route: str) -> torch.Tensor:
     """Runs the kernel of `route` on CUDA tensors; (M, N) f32 out."""
-    global LAUNCHES, EXACT_D_LAUNCHES, GENERIC_LAUNCHES
     if not u.is_cuda:
         raise ValueError(f"pairwise_order: no path for {u.device}")
     M, D = u.shape
@@ -308,11 +302,8 @@ def _launch(u: torch.Tensor, v: torch.Tensor, route: str) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"pairwise_order: {route} kernel launch failed "
                            f"with CUDA error {err}")
-    LAUNCHES += 1
-    if route == "exact_d":
-        EXACT_D_LAUNCHES += 1
-    else:
-        GENERIC_LAUNCHES += 1
+    profiling.count("pairwise_order")
+    profiling.count("pairwise_order_" + route)
     return out
 
 

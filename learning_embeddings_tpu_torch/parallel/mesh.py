@@ -29,8 +29,8 @@ collectives GSPMD would insert are written out:
   the autograd forms ``gather_rows`` (backward: the gradient summed over
   the group, or not, then this rank's block), ``copy_to_group``
   (identity forward, sum backward) and ``reduce_from_group`` (sum
-  forward, identity backward). Every call counts in ``COLLECTIVES`` by
-  tag and runs in the device span ``collective.<tag>``
+  forward, identity backward). Every call counts as "collective_<tag>"
+  and runs in the device span ``collective.<tag>``
   (``utils/profiling.py``: under a profiler, its event pair on the
   compute stream times what the collective holds that stream up, with no
   synchronise); nothing catches a failed collective.
@@ -40,7 +40,6 @@ collectives GSPMD would insert are written out:
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import datetime
 import os
@@ -62,14 +61,10 @@ __all__ = ["Mesh", "make_mesh", "mesh_device", "init_from_env",
            "all_reduce_", "all_gather_rows", "gather_rows", "copy_to_group",
            "reduce_from_group", "all_reduce_grads_", "barrier",
            "group_rank", "group_size", "is_writer", "check_batch_divides",
-           "global_step_outputs", "COLLECTIVES",
-           "DEFAULT_TIMEOUT_S"]
+           "global_step_outputs", "DEFAULT_TIMEOUT_S"]
 
 #: time limit of every collective of a process group this module starts
 DEFAULT_TIMEOUT_S = 300
-
-#: collectives issued by this process, by tag
-COLLECTIVES: collections.Counter = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -232,10 +227,10 @@ def group_rank(group) -> int:
 def all_reduce_(t: torch.Tensor, group, tag: str,
                 average: bool = False) -> torch.Tensor:
     """Sums `t` over `group` in place (then divides by the group's size
-    with `average`); counts the call under `tag`."""
+    with `average`); counts the call as "collective_<tag>"."""
     if group is None:
         return t
-    COLLECTIVES[tag] += 1
+    profiling.count("collective_" + tag)
     with profiling.span("collective." + tag, t.device):
         dist.all_reduce(t, group=group)
     if average:
@@ -266,7 +261,7 @@ def barrier(group=None) -> None:
         return
     dev = (torch.device("cuda", torch.cuda.current_device())
            if dist.get_backend(group) == "nccl" else torch.device("cpu"))
-    COLLECTIVES["barrier"] += 1
+    profiling.count("collective_barrier")
     with profiling.span("collective.barrier", dev):
         dist.all_reduce(torch.zeros(1, device=dev), group=group)
 

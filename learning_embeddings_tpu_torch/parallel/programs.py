@@ -23,38 +23,7 @@ __all__ = ["classifier_run", "classifier_steps", "classifier_cases",
            "eval_metrics", "embedding_run", "embedding_epochs", "fc7_run",
            "fc7_epochs", "joint_cnn_run", "joint_cnn_steps",
            "collective_check", "nccl_check", "synthetic_batches",
-           "runner_run", "cli_main", "counts", "reset_counts"]
-
-
-def counts() -> Dict[str, int]:
-    """This process's kernel launches (the attention's forward and
-    backward calls among them), BatchNorm channels_last copies and
-    collectives so far."""
-    from ..ops import attention, bn, bn_triton
-    from ..ops import pairwise_order as k3
-
-    return {"bn_stats": bn_triton.STATS_LAUNCHES,
-            "bn_corr": bn_triton.CORR_LAUNCHES,
-            "bn_dx": bn_triton.DX_LAUNCHES,
-            "bn_act": bn_triton.ACT_LAUNCHES,
-            "attention": attention.LAUNCHES,
-            "pairwise_order": k3.LAUNCHES,
-            "pairwise_order_exact_d": k3.EXACT_D_LAUNCHES,
-            "channels_last_copies": bn.CHANNELS_LAST_COPIES,
-            **{"collective_" + k: v for k, v in pmesh.COLLECTIVES.items()}}
-
-
-def reset_counts() -> None:
-    from ..ops import attention, bn, bn_triton
-    from ..ops import pairwise_order as k3
-
-    attention.LAUNCHES = 0
-    bn_triton.STATS_LAUNCHES = bn_triton.CORR_LAUNCHES = 0
-    bn_triton.STATS_ROUNDED_LAUNCHES = bn_triton.DX_LAUNCHES = 0
-    bn_triton.ACT_LAUNCHES = 0
-    k3.LAUNCHES = k3.EXACT_D_LAUNCHES = k3.GENERIC_LAUNCHES = 0
-    bn.CHANNELS_LAST_COPIES = 0
-    pmesh.COLLECTIVES.clear()
+           "runner_run", "cli_main"]
 
 
 def _numpy(sd) -> Dict[str, np.ndarray]:
@@ -150,13 +119,13 @@ def classifier_run(labelmap, cfg, batches: Sequence = (), *, mesh=None,
         out["eval_scores"] = scores.float().cpu().numpy()
     if tr.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(tr.device)
-    reset_counts()
+    profiling.reset_counts()
     losses = []
     for b in batches:
         tr.state, loss = tr.train_step(tr.state, *tr.put_batch(*b))
         losses.append(float(loss))
     out["losses"] = losses
-    out["counts"] = counts()
+    out["counts"] = profiling.counts()
     if checkpoint_roundtrip:
         payload = tr.checkpoint_payload()
         out["payload_params"] = _numpy({k: payload["params"][k]
@@ -272,8 +241,8 @@ def spatial_ops(n_model: int, specs: Sequence, shape: Sequence[int],
                     "dw": None if w is None else _numpy({"dw": w.grad})["dw"],
                     "channels_last": y.ndim < 4 or y.is_contiguous(
                         memory_format=torch.channels_last),
-                    "counts": counts()})
-        reset_counts()
+                    "counts": profiling.counts()})
+        profiling.reset_counts()
     return out
 
 
@@ -288,11 +257,11 @@ def pairwise_run(kind: str, u: np.ndarray, v: np.ndarray, *, mesh=None,
     from ..geometry.pairwise import pairwise_energy_sharded
 
     dev = mesh.device if mesh is not None else torch.device(device)
-    reset_counts()
+    profiling.reset_counts()
     E = pairwise_energy_sharded(kind, torch.as_tensor(u, device=dev),
                                 torch.as_tensor(v, device=dev), mesh=mesh,
                                 **kw)
-    return {"E": E.cpu().numpy(), "counts": counts()}
+    return {"E": E.cpu().numpy(), "counts": profiling.counts()}
 
 
 def pairwise_tiles(n_data: int, n_model: int, device: str = "cpu",
@@ -392,7 +361,7 @@ def embedding_run(labelmap, splits, cfg, *, mesh=None, epochs: int = 1,
             "val_f1": float(val.f1), "test_f1": float(test.f1),
             "reconstruction_f1": float(rec.f1),
             "reconstruction_threshold": float(rec.threshold),
-            "counts": counts()}
+            "counts": profiling.counts()}
 
 
 def embedding_epochs(n_data: int, device: str = "cpu", **kw) -> Dict:
@@ -428,7 +397,7 @@ def fc7_run(labelmap, graph, edges, features, cfg, *, mesh=None,
         out["micro_f1"] = m["micro_f1"]
     rec = tr.reconstruction()
     out["reconstruction_f1"] = float(rec.f1)
-    out["counts"] = counts()
+    out["counts"] = profiling.counts()
     return out
 
 
@@ -478,13 +447,13 @@ def joint_cnn_run(labelmap, graph, edges, bank: np.ndarray, cfg, *,
     out: Dict = evaluate("start_") if eval_at_start else {}
     if tr.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(tr.device)
-    reset_counts()
+    profiling.reset_counts()
     steps = []
     for pf, pt in batches:
         loss, e_pos, e_neg = tr.train_batch(np.asarray(pf), np.asarray(pt))
         steps.append({"loss": loss, "e_pos": e_pos.cpu().numpy(),
                       "e_neg": e_neg.cpu().numpy()})
-    out.update(steps=steps, counts=counts(),
+    out.update(steps=steps, counts=profiling.counts(),
                labels=_numpy(tr.embedder.state_dict()),
                images=_numpy(tr.featcnn.state_dict()))
     if timed_steps:
@@ -504,9 +473,9 @@ def joint_cnn_run(labelmap, graph, edges, bank: np.ndarray, cfg, *,
         pf, pt = batches[-1]
         out["warm_loss"] = tr.train_batch(np.asarray(pf), np.asarray(pt))[0]
     if eval_rows is not None:
-        reset_counts()
+        profiling.reset_counts()
         out.update(evaluate(""))
-        out["eval_counts"] = counts()
+        out["eval_counts"] = profiling.counts()
     if tr.device.type == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated(tr.device) / 2**30
     return out
@@ -555,14 +524,14 @@ def cli_main(module: str, argv: Sequence[str], keep: Sequence[str] = (),
              with_counts: bool = False) -> Dict:
     """A CLI's ``main(argv)`` in a rank of a running process group (its
     runner's ``mesh="auto"`` takes every rank); the result's keys in
-    `keep`, and with `with_counts` this rank's ``counts()`` over the run
-    under "counts"."""
+    `keep`, and with `with_counts` this rank's ``profiling.counts()``
+    over the run under "counts"."""
     import importlib
 
     _quiet_logger(jsonl_only, mkldnn)
-    reset_counts()
+    profiling.reset_counts()
     res = importlib.import_module(module).main(list(argv))
     out = {k: res[k] for k in keep}
     if with_counts:
-        out["counts"] = counts()
+        out["counts"] = profiling.counts()
     return out

@@ -28,6 +28,11 @@ event-timed milliseconds, read after a synchronise),
 ``profiled_since_ns`` (when a span first saw a profiler on: it separates
 a run's untraced part from its traced part) and ``trace_offset_ns``
 (puts the spans on a profiler trace's clock).
+
+Counters, always on. ``count(name)`` adds to the counter `name`: the
+kernel wrappers count their launches, ``ops/bn.py`` its channels_last
+copies, ``parallel/mesh.py`` its collectives ("collective_<tag>").
+``counts()`` reads them all, ``reset_counts()`` zeroes them.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ from torch.autograd import profiler as _autograd_profiler
 __all__ = ["trace_steps", "summarize_trace", "TRACE_FILE", "span",
            "in_device_span", "spans", "device_ms",
            "profiled_since_ns", "trace_offset_ns", "clear_spans",
-           "SpanRecord", "Offset", "RING"]
+           "SpanRecord", "Offset", "RING", "count", "counts",
+           "reset_counts"]
 
 TRACE_FILE = "trace.json"
 
@@ -267,6 +273,34 @@ def clear_spans() -> None:
     _RECORDER.records.clear()
     _RECORDER.ms.clear()
     _RECORDER.profiled_ns = None
+
+
+# ---------------------------------------------------------------------------
+# counters
+# ---------------------------------------------------------------------------
+
+_COUNTS: collections.Counter = collections.Counter()
+#: a count is a read and a write: threads (the joint step's two) share it
+_COUNTS_LOCK = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds `n` to the counter `name`."""
+    with _COUNTS_LOCK:
+        _COUNTS[name] += n
+
+
+def counts() -> collections.Counter:
+    """A copy of every counter since the process started or the last
+    ``reset_counts``: a name not counted yet reads 0."""
+    with _COUNTS_LOCK:
+        return collections.Counter(_COUNTS)
+
+
+def reset_counts() -> None:
+    """Sets every counter to 0."""
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
 
 
 # ---------------------------------------------------------------------------

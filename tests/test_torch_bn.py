@@ -15,12 +15,14 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from learning_embeddings_tpu.models.resnet import GhostBatchNorm as JaxGhost
 from learning_embeddings_tpu.ops import PallasBatchNorm
 from learning_embeddings_tpu.ops import batch_norm_train as jax_bn_train
 from learning_embeddings_tpu.ops import bn_pallas
 from learning_embeddings_tpu_torch.ops import bn
 from learning_embeddings_tpu_torch.ops import FusedBatchNorm
 from learning_embeddings_tpu_torch.ops import batch_norm_train
+from learning_embeddings_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -132,10 +134,68 @@ def test_non_channels_last_input_is_copied_counted_and_exact():
     x, scale, bias = _bn_inputs((3, 5, 5, 6), 4)
     s, b = torch.from_numpy(scale), torch.from_numpy(bias)
     y_cl, _, _ = batch_norm_train(_nchw(x), s, b)
-    before = bn.CHANNELS_LAST_COPIES
+    before = profiling.counts()["channels_last_copies"]
     y_nchw, _, _ = batch_norm_train(_nchw(x).contiguous(), s, b)
-    assert bn.CHANNELS_LAST_COPIES == before + 1
+    assert profiling.counts()["channels_last_copies"] == before + 1
     np.testing.assert_array_equal(y_cl.numpy(), y_nchw.numpy())
+
+
+def _zero_variance_inputs():
+    """Channel 2 holds 64 ± 2⁻⁷ in equal numbers: its sums are exact, each
+    x² rounds to 4096 ± 1, so Σx²/R − mean² is exactly 0 on both sides,
+    though x − mean is not. Integer dy keeps Σdy·x exact too."""
+    rng = np.random.RandomState(5)
+    x, scale, bias = _bn_inputs((4, 4, 4, 6), 5)
+    signs = np.where(rng.permutation(64) % 2, 1.0, -1.0).reshape(4, 4, 4)
+    x[..., 2] = 64 + signs * 2.0 ** -7
+    dy = rng.randint(-3, 4, x.shape).astype(np.float32)
+    return x, dy, scale, bias
+
+
+def _jax_dx_at_zero_variance(route, x, dy, scale, bias):
+    """(dx, var) of the JAX twin: the custom VJP of ``batch_norm_train``
+    (no clamp; slope 1) or ``GhostBatchNorm`` over all rows under
+    ``jax.grad`` (``jnp.maximum``'s slope, ½ at 0)."""
+    if route == "fused":
+        (_, _, var), vjp = jax.vjp(
+            lambda xx: jax_bn_train(xx, scale, bias, 1e-5), jnp.asarray(x))
+        zeros = jnp.zeros(x.shape[-1])
+        return np.asarray(vjp((jnp.asarray(dy), zeros, zeros))[0]), var
+    m = JaxGhost(use_running_average=False, dtype=jnp.float32, stats_rows=-1,
+                 stats_dtype=jnp.float32, momentum=0.0)
+    stats = {"mean": jnp.zeros(x.shape[-1]), "var": jnp.zeros(x.shape[-1])}
+
+    def f(xx):
+        y, new = m.apply({"params": {"scale": scale, "bias": bias},
+                          "batch_stats": stats}, xx, mutable=["batch_stats"])
+        return jnp.sum(y * dy), new["batch_stats"]["var"]
+    dx, var = jax.grad(f, has_aux=True)(jnp.asarray(x))
+    return np.asarray(dx), var
+
+
+@pytest.mark.parametrize("route", ["fused", "ghost"])
+def test_dx_at_zero_variance_takes_its_twins_slope(route):
+    """The one difference between the fused route and the ghost route over
+    all rows in f32: at a channel whose variance is exactly 0, the fused
+    route's dx takes slope 1 through max(var, 0), as the JAX custom VJP,
+    and the ghost route's ½, as JAX's autodiff of ``jnp.maximum``. Each
+    equals its twin within 1e-3 of max|dx| (JAX's autodiff adds 2x·dvar/n
+    and −2·mean·dvar/n apart, which cancel at mean 64, 1.4e-4 here) and
+    misses the other twin by a tenth of it."""
+    x, dy, scale, bias = _zero_variance_inputs()
+    tx = _nchw(x).clone().requires_grad_(True)
+    ts, tb = torch.from_numpy(scale), torch.from_numpy(bias)
+    y, _, var = (batch_norm_train(tx, ts, tb) if route == "fused" else
+                 bn.ghost_batch_norm_train(tx, ts, tb, 1e-5, -1))
+    y.backward(_nchw(dy))
+    got = _nhwc(tx.grad)
+    want, want_var = _jax_dx_at_zero_variance(route, x, dy, scale, bias)
+    other, _ = _jax_dx_at_zero_variance(
+        "ghost" if route == "fused" else "fused", x, dy, scale, bias)
+    assert var[2].item() == 0.0 and float(want_var[2]) == 0.0
+    tol = 1e-3 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    assert np.abs(got[..., 2] - other[..., 2]).max() > 100 * tol
 
 
 def test_fused_batch_norm_module_matches_pallas_batch_norm():

@@ -14,6 +14,7 @@ import torch
 
 from learning_embeddings_tpu_torch.ops import bn, bn_triton
 from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+from learning_embeddings_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -34,18 +35,25 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _since(before, *names):
+    """The counters `names` (``profiling.counts()``) since `before`."""
+    now = profiling.counts()
+    return tuple(now[k] - before[k] for k in names)
+
+
 @pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
 def test_pairwise_order_kernel_matches_plain(gen, shape):
     m, n, d = shape
     ui = torch.randint(-3, 4, (m, d), device="cuda", generator=gen).float()
     vi = torch.randint(-3, 4, (n, d), device="cuda", generator=gen).float()
-    before = (k3.LAUNCHES, k3.EXACT_D_LAUNCHES, k3.GENERIC_LAUNCHES)
+    before = profiling.counts()
     got = k3.pairwise_order(ui, vi)
     torch.cuda.synchronize()
     exact = int(bool(m and n) and k3.route_for(d) == "exact_d")
     generic = int(bool(m and n) and k3.route_for(d) == "generic")
-    assert (k3.LAUNCHES, k3.EXACT_D_LAUNCHES, k3.GENERIC_LAUNCHES) == (
-        before[0] + exact + generic, before[1] + exact, before[2] + generic)
+    assert _since(before, "pairwise_order", "pairwise_order_exact_d",
+                  "pairwise_order_generic") == (exact + generic, exact,
+                                                generic)
     # integer-valued inputs: every partial sum is exact in f32
     assert torch.equal(got, k3.pairwise_order_plain(ui, vi))
     u = torch.randn((m, d), device="cuda", generator=gen)
@@ -64,11 +72,11 @@ def test_generic_route_matches_plain_at_small_d(gen, shape):
     m, n, d = shape
     ui = torch.randint(-3, 4, (m, d), device="cuda", generator=gen).float()
     vi = torch.randint(-3, 4, (n, d), device="cuda", generator=gen).float()
-    before = (k3.EXACT_D_LAUNCHES, k3.GENERIC_LAUNCHES)
+    before = profiling.counts()
     got = k3.pairwise_order_generic(ui, vi)
     torch.cuda.synchronize()
-    assert (k3.EXACT_D_LAUNCHES, k3.GENERIC_LAUNCHES) == (before[0],
-                                                          before[1] + 1)
+    assert _since(before, "pairwise_order_exact_d",
+                  "pairwise_order_generic") == (0, 1)
     assert torch.equal(got, k3.pairwise_order_plain(ui, vi))
 
 
@@ -123,13 +131,12 @@ def test_hyperbolic_joint_step_on_the_card(gen):
                                      batch_size=8, neg_to_pos_ratio=4,
                                      alpha=0.5, lr_images=1e-5,
                                      tower_dtype="float32", device=dev))
-            before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES)
+            before = profiling.counts()
             loss, _, _ = tr.train_batch(batch[:, 0], batch[:, 1])
             torch.cuda.synchronize()
             out[dev] = (loss, tr.embedder.embedding.detach().cpu(),
                         tr.label_embeddings().cpu(),
-                        (bn_triton.STATS_LAUNCHES - before[0],
-                         bn_triton.CORR_LAUNCHES - before[1]))
+                        _since(before, "bn_stats", "bn_corr"))
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     (lc, tc, ec, nc), (lp, tp, _, np_) = out["cuda"], out["cpu"]
@@ -164,12 +171,12 @@ def test_label_runner_resumes_on_the_card(gen, tmp_path):
                                  embedding_dim=10, batch_size=8, lr=1e-2)
     kw = dict(experiment_dir=str(tmp_path), experiment_name="r",
               check_reconstr_every=1)
-    before = (k3.LAUNCHES, k3.EXACT_D_LAUNCHES)
+    before = profiling.counts()
     run_label_embedding(lm, splits, cfg, n_epochs=2, **kw)
     res = run_label_embedding(lm, splits, cfg, n_epochs=3, resume=True, **kw)
     torch.cuda.synchronize()
     # 2 + 1 per-epoch reconstructions and one final one per run
-    assert (k3.LAUNCHES - before[0], k3.EXACT_D_LAUNCHES - before[1]) == \
+    assert _since(before, "pairwise_order", "pairwise_order_exact_d") == \
         (5, 5)
     assert res["trainer"].model.embedding.device.type == "cuda"
     assert np.isfinite(res["reconstruction_f1"])
@@ -201,10 +208,10 @@ def test_label_only_epoch_on_the_card(gen):
         assert all(map(np.isfinite, stats.values())), (energy, opt, stats)
         tr.evaluate("val")
         tr.evaluate("test")
-        before = (k3.LAUNCHES, k3.EXACT_D_LAUNCHES)
+        before = profiling.counts()
         rec = tr.reconstruction()
         torch.cuda.synchronize()
-        launched = (k3.LAUNCHES - before[0], k3.EXACT_D_LAUNCHES - before[1])
+        launched = _since(before, "pairwise_order", "pairwise_order_exact_d")
         assert launched == ((1, 1) if energy == "order" else (0, 0))
         assert np.isfinite(float(rec.f1))
         if energy == "order":
@@ -251,11 +258,10 @@ def test_classifier_runner_on_the_card(gen, tmp_path):
                            lr=1e-4, grad_accum=2)
     kw = dict(experiment_dir=str(tmp_path), experiment_name="c",
               n_workers=2)
-    before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES)
+    before = profiling.counts()
     run_classifier(lm, datasets, "", cfg, n_epochs=2, **kw)
     torch.cuda.synchronize()
-    assert (bn_triton.STATS_LAUNCHES - before[0],
-            bn_triton.CORR_LAUNCHES - before[1]) == (2 * 4 * 20, 2 * 4 * 20)
+    assert _since(before, "bn_stats", "bn_corr") == (2 * 4 * 20, 2 * 4 * 20)
     res = run_classifier(lm, datasets, "", cfg, n_epochs=3, resume=True,
                          **kw)
     assert all(np.isfinite(v) for v in res["test_metrics"].values())
@@ -308,12 +314,12 @@ def test_fc7_joint_epoch_and_order_eval_on_the_card(gen):
         t = tr["cuda"]
         stats = t.train_epoch(0, np.random.RandomState(0))
         assert all(map(np.isfinite, stats.values())), (energy, stats)
-        before = (k3.LAUNCHES, k3.EXACT_D_LAUNCHES)
+        before = profiling.counts()
         t.classification_metrics()
         t.classification_metrics(val_paths, val)
         t.reconstruction()
         torch.cuda.synchronize()
-        launched = (k3.LAUNCHES - before[0], k3.EXACT_D_LAUNCHES - before[1])
+        launched = _since(before, "pairwise_order", "pairwise_order_exact_d")
         assert launched == ((3, 3) if energy == "order" else (0, 0))
         if energy == "order":
             lab, img = t.label_embeddings(), t.image_embeddings(val)
@@ -328,8 +334,7 @@ def test_fashion_mnist_cli_on_the_card(gen, tmp_path, capsys):
     none in the eval steps, and no channels_last copy."""
     from learning_embeddings_tpu_torch.cli import fashion_mnist
 
-    bn.CHANNELS_LAST_COPIES = 0
-    before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES)
+    before = profiling.counts()
     res = fashion_mnist.main([
         "--experiment_dir", str(tmp_path), "--experiment_name", "f",
         "--n_epochs", "1", "--loss", "multi_level", "--set_mode", "train",
@@ -339,9 +344,8 @@ def test_fashion_mnist_cli_on_the_card(gen, tmp_path, capsys):
     assert "synthetic stand-in" in capsys.readouterr().out
     steps = res["train_steps"]
     assert steps > 10
-    assert (bn_triton.STATS_LAUNCHES - before[0],
-            bn_triton.CORR_LAUNCHES - before[1]) == (20 * steps, 20 * steps)
-    assert bn.CHANNELS_LAST_COPIES == 0
+    assert _since(before, "bn_stats", "bn_corr") == (20 * steps, 20 * steps)
+    assert _since(before, "channels_last_copies") == (0,)
     assert all(np.isfinite(v) for v in res["test_metrics"].values())
 
 
@@ -376,12 +380,11 @@ def test_inference_on_the_card_matches_the_cpu(gen):
                          for k, v in tr.model.state_dict().items()}
             tr.model.load_state_dict(state)
             slices = inference.level_slices(tr)
-            before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES)
+            before = profiling.counts()
             maps = inference.occlusion_maps(tr, img, ll, slices)
             probs = inference.lime_predict(tr, slices)(
                 np.repeat(img.astype(np.float32) / 255.0, 3, axis=0))
-            assert (bn_triton.STATS_LAUNCHES,
-                    bn_triton.CORR_LAUNCHES) == before
+            assert _since(before, "bn_stats", "bn_corr") == (0, 0)
             out[dev] = (maps, probs)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
@@ -440,10 +443,10 @@ def test_bn_dx_matches_plain(gen, R, C):
             args = (dy, x, scale, mean, inv, sdy, sdyx, sdy, sdyx, rows,
                     rows, d if ghost else None, ghost)
             dy0, x0 = dy.clone(), x.clone()
-            before = bn_triton.DX_LAUNCHES
+            before = profiling.counts()
             got, dscale = bn_triton.bn_dx(*args)
             torch.cuda.synchronize()
-            assert bn_triton.DX_LAUNCHES == before + 1
+            assert _since(before, "bn_dx") == (1,)
             want, dscale_want = bn._dx_plain(*args)
             assert got.dtype == dtype and got.shape == (R, C)
             g = (scale * inv).abs()
@@ -502,11 +505,11 @@ def test_bn_act_matches_plain(gen, R, C):
                                  relu=False)
             for res in (None, r):
                 for relu in (False, True):
-                    before = bn_triton.ACT_LAUNCHES
+                    before = profiling.counts()
                     got, stats = bn_triton.bn_act(x, scale, bias, 1e-5, u, v,
                                                   n, rs, res, relu)
                     torch.cuda.synchronize()
-                    assert bn_triton.ACT_LAUNCHES == before + 1
+                    assert _since(before, "bn_act") == (1,)
                     want, want_stats = bn._act_plain(
                         x, scale, bias, 1e-5, u, v, n, rs, res, relu)
                     assert got.dtype == dtype and got.shape == (R, C)
@@ -594,7 +597,7 @@ def test_bn_stats_bf16_rounding_variant_matches_plain(gen, R, C):
     bf16 BatchNorm statistics): equal to its plain version on values whose
     squares and sums are exact, within 1e-5·Σ|terms| on normal ones, and
     counted as a K1 launch."""
-    before = (bn_triton.STATS_LAUNCHES, bn_triton.STATS_ROUNDED_LAUNCHES)
+    before = profiling.counts()
     ints = torch.randint(-3, 4, (R, C), device="cuda", generator=gen) \
         .to(torch.bfloat16)
     for g, w in zip(bn_triton.bn_stats(ints, True),
@@ -608,8 +611,7 @@ def test_bn_stats_bf16_rounding_variant_matches_plain(gen, R, C):
     # the rounding shows: Σ round(x²) is not Σ x²
     assert not torch.equal(got[1], bn._stats_plain(x)[1])
     torch.cuda.synchronize()
-    assert (bn_triton.STATS_LAUNCHES, bn_triton.STATS_ROUNDED_LAUNCHES) == (
-        before[0] + 2, before[1] + 2)
+    assert _since(before, "bn_stats", "bn_stats_rounded") == (2, 2)
 
 
 def test_ghost_batch_norm_reads_a_row_prefix_on_the_card(gen):
@@ -666,15 +668,11 @@ def _resnet50_step_counts(**cfg_kw):
     ll = lm.leaf_paths()[rng.randint(0, lm.levels[-1], 4)]
     b = tr.put_batch(rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8),
                      ll, np.zeros((4, lm.n_classes), np.float32))
-    before = (bn_triton.STATS_LAUNCHES, bn_triton.CORR_LAUNCHES,
-              bn_triton.DX_LAUNCHES, bn_triton.ACT_LAUNCHES)
+    before = profiling.counts()
     _, loss = tr.train_step(tr.state, *b)
     torch.cuda.synchronize()
     assert np.isfinite(float(loss))
-    return (bn_triton.STATS_LAUNCHES - before[0],
-            bn_triton.CORR_LAUNCHES - before[1],
-            bn_triton.DX_LAUNCHES - before[2],
-            bn_triton.ACT_LAUNCHES - before[3])
+    return _since(before, "bn_stats", "bn_corr", "bn_dx", "bn_act")
 
 
 def test_remat_step_launch_counts(gen):
@@ -699,7 +697,6 @@ def test_eval_forward_launches_the_act_kernel_once_a_batch_norm(gen):
     BatchNorm with the running statistics, and no other BN kernel; its
     scores are finite."""
     from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
-    from learning_embeddings_tpu_torch.parallel import programs
     from learning_embeddings_tpu_torch.train.classifier import (
         ClassifierConfig, ClassifierTrainer)
 
@@ -707,10 +704,10 @@ def test_eval_forward_launches_the_act_kernel_once_a_batch_norm(gen):
     tr = ClassifierTrainer(lm, ClassifierConfig(
         backbone="resnet50", image_size=64, batch_size=4, device="cuda"))
     b = tr.put_batch(*_cls_batch(lm, 4, 64, 0))
-    programs.reset_counts()
+    profiling.reset_counts()
     loss, scores = tr.eval_step(tr.state, *b)
     torch.cuda.synchronize()
-    c = programs.counts()
+    c = profiling.counts()
     assert (c["bn_stats"], c["bn_corr"], c["bn_dx"], c["bn_act"]) == (
         0, 0, 0, 53)
     assert bool(torch.isfinite(scores).all()) and np.isfinite(float(loss))
@@ -943,7 +940,6 @@ def test_vit_train_step_launch_counts(gen, remat):
     attention 48 times (a forward and a backward per block; 72 with
     remat), no BatchNorm kernel; then an eval step of finite scores."""
     from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
-    from learning_embeddings_tpu_torch.parallel import programs
     from learning_embeddings_tpu_torch.train.classifier import (
         ClassifierConfig, ClassifierTrainer)
 
@@ -952,11 +948,11 @@ def test_vit_train_step_launch_counts(gen, remat):
         backbone="vit_l_16", image_size=448, batch_size=2, remat=remat,
         device="cuda"))
     b = tr.put_batch(*_cls_batch(lm, 2, 448, 0))
-    programs.reset_counts()
+    profiling.reset_counts()
     tr.state, loss = tr.train_step(tr.state, *b)
     torch.cuda.synchronize()
     assert np.isfinite(float(loss))
-    c = programs.counts()
+    c = profiling.counts()
     assert c["attention"] == (72 if remat else 48)
     assert (c["bn_stats"], c["bn_corr"], c["bn_dx"], c["bn_act"]) == (
         0, 0, 0, 0)

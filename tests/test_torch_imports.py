@@ -152,6 +152,7 @@ def test_cpu_path_never_builds_or_loads_the_cuda_library(monkeypatch):
 
     from learning_embeddings_tpu_torch.geometry import pairwise_energy
     from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+    from learning_embeddings_tpu_torch.utils import profiling
 
     def refuse(*a, **k):
         raise AssertionError("the CPU path tried to build or load the "
@@ -160,11 +161,11 @@ def test_cpu_path_never_builds_or_loads_the_cuda_library(monkeypatch):
     monkeypatch.setattr(k3, "build_library", refuse)
     monkeypatch.setattr(k3, "_library", refuse)
     monkeypatch.setattr(k3.subprocess, "run", refuse)
-    before = k3.LAUNCHES
+    before = profiling.counts()["pairwise_order"]
     u = torch.randn(7, 10)
     out = pairwise_energy("order", u, torch.randn(9, 10))
     assert out.shape == (7, 9) and k3._LIB is None
-    assert k3.LAUNCHES == before
+    assert profiling.counts()["pairwise_order"] == before
 
 
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from learning_embeddings_tpu_torch.ops import pairwise_order as k3
+from learning_embeddings_tpu_torch.utils import profiling
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -127,7 +128,7 @@ def test_cpu_path_never_builds_or_loads_the_library(no_library, D):
     rng = np.random.RandomState(D)
     u = torch.from_numpy(rng.randn(19, D).astype(np.float32))
     v = torch.from_numpy(rng.randn(130, D).astype(np.float32))
-    counts = (k3.LAUNCHES, k3.EXACT_D_LAUNCHES, k3.GENERIC_LAUNCHES)
+    counts = profiling.counts()
     out = k3.pairwise_order(u, v)
     torch.testing.assert_close(out, k3.pairwise_order_plain(u, v),
                                rtol=0, atol=0)
@@ -135,7 +136,7 @@ def test_cpu_path_never_builds_or_loads_the_library(no_library, D):
     with pytest.raises(ValueError, match="no path for cpu"):
         k3.pairwise_order_generic(u, v)
     assert k3._LIB is None
-    assert (k3.LAUNCHES, k3.EXACT_D_LAUNCHES, k3.GENERIC_LAUNCHES) == counts
+    assert profiling.counts() == counts
 
 
 def test_variant_tool_cuts_the_current_source(monkeypatch):

@@ -1,9 +1,11 @@
 """The port's spans (``utils/profiling.py``) on the CPU: host spans and
 their ring, device spans switched by the profiler alone, the BatchNorm
 epilogues' spans (nothing built outside a profiler, the same arithmetic
-inside one), the joint epoch's spans, the collectives' spans, and
-``trace_offset_ns`` on synthetic spans and runtime ranges."""
+inside one), the joint epoch's spans, the collectives' spans,
+``trace_offset_ns`` on synthetic spans and runtime ranges, and the
+counters."""
 
+import sys
 import threading
 
 import numpy as np
@@ -297,3 +299,43 @@ def test_collectives_are_timed_by_their_spans(tmp_path):
     assert sum(ms.values()) <= 1e3 * step_s
     assert not hasattr(pmesh, "TIME_COLLECTIVES")
     assert not hasattr(pmesh, "COLLECTIVE_SECONDS")
+
+
+def test_counters_count_copies_read_zero_and_reset():
+    """A channels_last copy in ``ops/bn.py`` counts under
+    "channels_last_copies"; a name never counted reads 0; ``counts()`` is
+    a copy; ``reset_counts()`` zeroes every name."""
+    profiling.reset_counts()
+    x = torch.randn(2, 3, 4, 4)                 # NCHW: not channel-minor
+    bn.batch_norm_train(x, torch.ones(3), torch.zeros(3))
+    c = profiling.counts()
+    assert c["channels_last_copies"] == 1
+    assert c["never_counted"] == 0
+    c["channels_last_copies"] += 5
+    profiling.count("bn_stats", 3)
+    assert profiling.counts() == {"channels_last_copies": 1, "bn_stats": 3}
+    profiling.reset_counts()
+    assert all(profiling.counts()[k] == 0
+               for k in ("channels_last_copies", "bn_stats"))
+    assert profiling.counts() == {}
+
+
+def test_counts_from_many_threads_are_all_kept():
+    """16 threads counting one name at once, switching every µs: no count
+    is lost."""
+    profiling.reset_counts()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            profiling.count("stress") for _ in range(2000)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert profiling.counts()["stress"] == 16 * 2000
+    profiling.reset_counts()

@@ -41,7 +41,6 @@ from learning_embeddings_tpu_torch.models.heads import \
 from learning_embeddings_tpu_torch.models.vit import \
     VisionTransformer  # noqa: E402
 from learning_embeddings_tpu_torch.ops import attention as att  # noqa: E402
-from learning_embeddings_tpu_torch.parallel import programs  # noqa: E402
 from learning_embeddings_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from learning_embeddings_tpu_torch.train.classifier import (  # noqa: E402
     ClassifierConfig, ClassifierTrainer)
@@ -166,12 +165,12 @@ def test_attention_without_gradient_builds_no_node():
 def test_launches_and_spans_per_block(remat):
     images, labels = _inputs(2)
     model = _model(remat=remat)
-    programs.reset_counts()
+    profiling.reset_counts()
     with profile(activities=[ProfilerActivity.CPU]):
         _port_grads(model, images, labels)
     depth = ARCH.depth
     # a forward and a backward a block; remat runs each forward again
-    assert programs.counts()["attention"] == depth * (3 if remat else 2)
+    assert profiling.counts()["attention"] == depth * (3 if remat else 2)
     fwd, bwd = (profiling.spans(n) for n in ("attention.fwd",
                                               "attention.bwd"))
     assert len(fwd) == depth * (2 if remat else 1)
@@ -185,9 +184,9 @@ def test_launches_and_spans_per_block(remat):
 
 def test_no_span_outside_a_profiler_and_launches_still_counted():
     images, labels = _inputs(2)
-    programs.reset_counts()
+    profiling.reset_counts()
     _port_grads(_model(), images, labels)
-    assert programs.counts()["attention"] == 2 * ARCH.depth
+    assert profiling.counts()["attention"] == 2 * ARCH.depth
     assert profiling.spans("attention.fwd") == []
     assert profiling.spans("attention.bwd") == []
 
@@ -216,11 +215,11 @@ def test_trainer_steps_the_vit():
     mh = np.zeros((B, lm.n_classes), np.float32)
     mh[np.arange(B)[:, None], ll + np.asarray(lm.level_start)] = 1.0
     before = {k: p.detach().clone() for k, p in tr.model.named_parameters()}
-    programs.reset_counts()
+    profiling.reset_counts()
     tr.state, loss = tr.train_step(tr.state, *tr.put_batch(images, ll, mh))
     assert np.isfinite(float(loss))
-    assert programs.counts()["attention"] == 2 * ARCH.depth
-    assert programs.counts()["bn_stats"] == 0
+    assert profiling.counts()["attention"] == 2 * ARCH.depth
+    assert profiling.counts()["bn_stats"] == 0
     moved = [k for k, p in tr.model.named_parameters()
              if not torch.equal(p.detach(), before[k])]
     assert "trunk.class_token" in moved and "trunk.encoder.pos_embedding" \
