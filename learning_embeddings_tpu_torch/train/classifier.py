@@ -89,7 +89,7 @@ from ..parallel.mesh import (Mesh, all_gather_rows, all_reduce_,
                              all_reduce_grads_, param_shardings,
                              shard_height, shard_linear_layers_, shard_rows)
 from ..parallel.spatial import SpatialShards
-from ..utils import profiling
+from ..utils import profiling, staging
 
 __all__ = ["ClassifierConfig", "ClassifierTrainer", "TrainState",
            "make_criterion", "resolve_device", "mesh_or_device", "to_device",
@@ -123,13 +123,21 @@ def resolve_device(device) -> torch.device:
 
 def to_device(a, device, dtype=None) -> torch.Tensor:
     """A host array (or tensor) as a tensor on `device`, its dtype kept
-    unless `dtype` is given; the copy alone runs in the host span
-    "copy.h2d", which a profiler trace's ``cudaMemcpyAsync`` call lies in
+    unless `dtype` is given. From the host to a card the copy goes through
+    that card's pinned ring on its copy stream, and the calling thread's
+    current stream waits on it: the host does not (``utils/staging.py``;
+    the array itself is read before this returns). Otherwise the copy
+    alone runs in the host span "copy.h2d". Each ``cudaMemcpyAsync`` call
+    lies in a "copy.h2d" span
     (``utils/profiling.py::trace_offset_ns`` puts the spans on the
     trace's clock by these)."""
     t = torch.as_tensor(a)
+    device = torch.device(device)
+    dtype = dtype or t.dtype
+    if device.type == "cuda" and t.device.type == "cpu":
+        return staging.to_cuda(t, device, dtype)
     with profiling.span("copy.h2d"):
-        return t.to(device, dtype=dtype or t.dtype, non_blocking=True)
+        return t.to(device, dtype=dtype, non_blocking=True)
 
 
 def mesh_or_device(mesh, device) -> torch.device:

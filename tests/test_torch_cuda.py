@@ -958,3 +958,181 @@ def test_vit_train_step_launch_counts(gen, remat):
         0, 0, 0, 0)
     loss, scores = tr.eval_step(tr.state, *b)
     assert bool(torch.isfinite(scores).all()) and np.isfinite(float(loss))
+
+
+# ---------------------------------------------------------------------------
+# host → card copies through the pinned ring (utils/staging.py)
+# ---------------------------------------------------------------------------
+
+#: the train cell's batch: 128 × 448² × 3 uint8, 77 MB
+H2D_B, H2D_S = 128, 448
+
+
+@pytest.fixture(scope="module")
+def h2d():
+    """(labelmap, images, int32 labels, f32 multi-hot, a ResNet-18
+    trainer at 448²) for the copy tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the copy path under test is the "
+                    "card's)")
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig, ClassifierTrainer)
+
+    lm = toy_labelmap(2, 3)
+    tr = ClassifierTrainer(lm, ClassifierConfig(
+        backbone="resnet18", image_size=H2D_S, batch_size=H2D_B,
+        device="cuda"))
+    return (lm, *_cls_batch(lm, H2D_B, H2D_S, 21), tr)
+
+
+def _h2d_case(h2d, case):
+    _, imgs, ll, mh, _ = h2d
+    return {"uint8_images": (imgs, None),
+            "int32_labels_to_int64": (ll, torch.int64),
+            "f32_multihot": (mh, torch.float32),
+            "height_split_view": (imgs[:, H2D_S // 2:], None),
+            "ragged_38_rows": (imgs[:38], None)}[case]
+
+
+@pytest.mark.parametrize("case", ["uint8_images", "int32_labels_to_int64",
+                                  "f32_multihot", "height_split_view",
+                                  "ragged_38_rows"])
+def test_to_device_equals_a_blocking_copy(gen, h2d, case):
+    """Through the pinned ring, bit for bit what a blocking ``.to()``
+    gives: the dtype converted, strides gathered, one staged copy."""
+    from learning_embeddings_tpu_torch.train.classifier import to_device
+
+    a, dtype = _h2d_case(h2d, case)
+    before = profiling.counts()
+    got = to_device(a, "cuda", dtype)
+    plain = torch.as_tensor(a)
+    want = plain.to("cuda", dtype=dtype or plain.dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.is_contiguous() and torch.equal(got, want)
+    assert _since(before, "copy_pinned") == (1,)
+
+
+@pytest.mark.parametrize("rows", [H2D_B, 38])
+def test_put_batch_equals_blocking_copies(gen, h2d, rows):
+    """``put_batch`` of the whole and of a ragged batch: three staged
+    copies, each bit-equal to a blocking one."""
+    _, imgs, ll, mh, tr = h2d
+    before = profiling.counts()
+    got = tr.put_batch(imgs[:rows], ll[:rows], mh[:rows])
+    want = (torch.as_tensor(imgs[:rows]).cuda(),
+            torch.as_tensor(ll[:rows]).to("cuda", torch.int64),
+            torch.as_tensor(mh[:rows]).to("cuda", torch.float32))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert _since(before, "copy_pinned") == (3,)
+
+
+def test_put_batch_returns_while_the_stream_is_busy(gen, h2d):
+    """With ~0.5 s of work queued on the current stream, ``put_batch`` of
+    the 77 MB batch returns before that work ends: it waits neither for
+    the stream nor for its copy. The tensors are exact afterwards."""
+    _, imgs, ll, mh, tr = h2d
+    tr.put_batch(imgs, ll, mh)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10 ** 9)
+    busy = torch.cuda.Event()
+    busy.record()
+    got = tr.put_batch(imgs, ll, mh)
+    assert not busy.query()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), torch.as_tensor(imgs))
+    assert torch.equal(got[1].cpu(), torch.as_tensor(ll).long())
+    assert torch.equal(got[2].cpu(), torch.as_tensor(mh))
+
+
+def test_the_consumer_stream_waits_for_the_copy(gen, h2d):
+    """With the copy stream held back, work queued on the current stream
+    right after ``to_device`` still reads the copied bytes."""
+    from learning_embeddings_tpu_torch.train.classifier import to_device
+    from learning_embeddings_tpu_torch.utils import staging
+
+    a = np.random.RandomState(8).randint(
+        0, 256, (H2D_B, H2D_S, H2D_S, 3)).astype(np.uint8)
+    with torch.cuda.stream(staging._ring(torch.device("cuda")).stream):
+        torch.cuda._sleep(2 * 10 ** 8)
+    total = to_device(a, "cuda").sum(dtype=torch.int64)
+    assert int(total) == int(a.sum(dtype=np.int64))
+
+
+def test_copies_keep_their_bytes_while_the_consumer_lags(gen, h2d):
+    """Six copies of distinct 77 MB arrays (more than the ring holds),
+    each read by the current stream behind ~0.5 s of queued work and
+    released at once: no ring bytes and no device block are used again
+    before the reads, so each read finds its own array."""
+    from learning_embeddings_tpu_torch.train.classifier import to_device
+
+    shape = (H2D_B, H2D_S, H2D_S, 3)
+    arrays = []
+    for k in range(6):
+        a = np.full(shape, 17 * k + 3, np.uint8)
+        a[k] = np.random.RandomState(k).randint(0, 256, shape[1:])
+        arrays.append(a)
+    reads = torch.empty((6,) + shape, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10 ** 9)
+    busy = torch.cuda.Event()
+    busy.record()
+    for k, a in enumerate(arrays):
+        out = to_device(a, "cuda")
+        reads[k].copy_(out)
+        del out
+    assert not busy.query()
+    torch.cuda.synchronize()
+    for k, a in enumerate(arrays):
+        assert torch.equal(reads[k].cpu(), torch.as_tensor(a))
+
+
+def test_train_steps_never_wait_for_the_ring(gen, h2d):
+    """Twenty ResNet-18@448 train steps at batch 128: three staged copies
+    a step, and the host never waits for ring bytes still in flight."""
+    _, imgs, ll, mh, tr = h2d
+    tr.state, loss = tr.train_step(tr.state, *tr.put_batch(imgs, ll, mh))
+    torch.cuda.synchronize()
+    before = profiling.counts()
+    for _ in range(20):
+        tr.state, loss = tr.train_step(tr.state,
+                                       *tr.put_batch(imgs, ll, mh))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    assert _since(before, "copy_pinned", "copy_pinned_wait") == (60, 0)
+
+
+def test_threads_copying_at_once_each_get_their_own_bytes(gen):
+    """Sixteen threads (more than the host's cores, the interpreter
+    switching every microsecond) copy distinct arrays through the one
+    ring at once, as the joint's prefetch thread does beside the main
+    thread: every copy reads back as its own array."""
+    import sys
+    import threading
+
+    from learning_embeddings_tpu_torch.train.classifier import to_device
+
+    def work(k, out):
+        rng = np.random.RandomState(100 + k)
+        for i in range(8):
+            a = rng.randint(0, 256, (24 + k, 300, 200, 3)).astype(np.uint8)
+            got = to_device(a, "cuda")
+            out.append(bool(torch.equal(got.cpu(), torch.as_tensor(a))))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        results = [[] for _ in range(16)]
+        threads = [threading.Thread(target=work, args=(k, results[k]))
+                   for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert results == [[True] * 8] * 16
