@@ -32,7 +32,8 @@ BOTTLENECK_DIM = 2
 class HierarchicalCNN(nn.Module):
     """Backbone trunk (`trunk`: any of ``BACKBONES``, with the remat,
     stem and BatchNorm options of ``models/resnet.py``; `image_size` sizes
-    a ViT's position embedding, and the convolutional trunks ignore it) +
+    a ViT's position embedding and a Swin's masks, and the convolutional
+    trunks ignore it) +
     a head.
 
     Takes NCHW images (channels_last memory on the card) with

@@ -1,6 +1,7 @@
 """The backbone zoo in PyTorch: the port of ``learning_embeddings_tpu/
 models/resnet.py`` (ResNet-18 to -152, ``AlexNet``, ``VGG11BN``), and
-the port's own ViT-L/16 (``models/vit.py``), registered here.
+the port's own ViT-L/16 (``models/vit.py``) and Swin-L
+(``models/swin.py``), registered here.
 
 * Parameter names are torchvision's for the ResNets (conv1, bn1,
   layer{i}.{j}.conv{k} / bn{k} / downsample.{0,1}), so a JAX tree carried
@@ -76,6 +77,7 @@ __all__ = [
     "resnet101",
     "resnet152",
     "vit_l_16",
+    "swin_l",
     "BACKBONES",
     "STEMS",
     "make_trunk",
@@ -460,7 +462,8 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> None:
     weights LeCun-normal (truncated at two standard deviations), biases 0,
     BatchNorm scale 1 / bias 0 / running mean 0 / running var 1. A module
     with a ``reset_parameters_(generator)`` method initialises its own
-    parameters by it (the ViT's, ``models/vit.py``), in the same walk."""
+    parameters by it (the ViT's, ``models/vit.py``; the Swin's bias
+    tables, ``models/swin.py``), in the same walk."""
     for m in module.modules():
         if hasattr(m, "reset_parameters_"):
             m.reset_parameters_(generator)
@@ -502,6 +505,13 @@ def vit_l_16(**kw):
     return build(**kw)
 
 
+def swin_l(**kw):
+    """Swin-L, window 12 (``models/swin.py``, which builds on this
+    module's ``Conv2d``)."""
+    from .swin import swin_l as build
+    return build(**kw)
+
+
 BACKBONES: dict = {
     "alexnet": AlexNet,
     "vgg11_bn": VGG11BN,
@@ -511,6 +521,7 @@ BACKBONES: dict = {
     "resnet101": resnet101,
     "resnet152": resnet152,
     "vit_l_16": vit_l_16,
+    "swin_l": swin_l,
 }
 
 

@@ -55,8 +55,8 @@ class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last dim whose f32 scale and bias are cast to the
     input's dtype at use; the statistics are f32 inside the op."""
 
-    def __init__(self, dim: int):
-        super().__init__(dim, eps=LN_EPS)
+    def __init__(self, dim: int, eps: float = LN_EPS):
+        super().__init__(dim, eps=eps)
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         """Scale 1, bias 0 (``resnet.init_params_`` calls this)."""
@@ -70,11 +70,12 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Linear(nn.Linear):
-    """Linear layer whose f32 weight and bias are cast to the input's
-    dtype at use."""
+    """Linear layer whose f32 weight and bias (if any) are cast to the
+    input's dtype at use."""
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
 
 
 class SelfAttention(nn.Module):

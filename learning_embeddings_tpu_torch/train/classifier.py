@@ -27,9 +27,10 @@ statistics update on every micro-batch), grayscale input and
 the BatchNorm routes of ``ops/bn.py``: ``bn_stats_rows`` /
 ``bn_stats_dtype`` (``GhostBatchNorm``) before ``bn_impl`` ('pallas', the
 fused reductions, the port's default; 'flax', the library's BatchNorm).
-``backbone="vit_l_16"`` (``models/vit.py``) has no BatchNorm: the
-BatchNorm options are accepted and change nothing, its position
-embedding is sized by ``image_size``, and it runs on one device (a mesh
+``backbone="vit_l_16"`` (``models/vit.py``) and ``backbone="swin_l"``
+(``models/swin.py``) have no BatchNorm: the BatchNorm options are
+accepted and change nothing, the ViT's position embedding and the Swin's
+masks are sized by ``image_size``, and each runs on one device (a mesh
 of several ranks or ``spatial_partition`` raises ValueError).
 
 On a mesh (``mesh=``, ``parallel/mesh.py``), as the JAX package's GSPMD
@@ -250,7 +251,7 @@ def _check_options(cfg: ClassifierConfig) -> None:
 
 
 def _check_trunk(trunk, cfg: ClassifierConfig, mesh) -> None:
-    # a trunk with no spatial units (ViT) runs whole, on one device
+    # a trunk with no spatial units (ViT, Swin) runs whole, on one device
     if hasattr(trunk, "spatial_units"):
         return
     if cfg.spatial_partition:

@@ -21,7 +21,10 @@ is kept and the pair goes back to a pool, so a profiled run makes about
 as many pairs as it has device spans in flight. ``in_device_span`` runs
 a function in a device span while a profiler records and records nothing
 otherwise, at the cost of one flag read (the hot paths: the BatchNorm
-epilogues). The profiler being on is the only switch.
+epilogues). ``traced_op`` does the same for an op with a backward: its
+forward in one device span, and its backward, from the node after its
+output to the node before its inputs, in another (``ops/attention.py``,
+``models/swin.py``). The profiler being on is the only switch.
 
 Readers: ``spans`` (records by name and time), ``device_ms`` (a record's
 event-timed milliseconds, read after a synchronise),
@@ -51,7 +54,7 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["trace_steps", "summarize_trace", "TRACE_FILE", "span",
-           "in_device_span", "spans", "device_ms",
+           "in_device_span", "traced_op", "spans", "device_ms",
            "profiled_since_ns", "trace_offset_ns", "clear_spans",
            "SpanRecord", "Offset", "RING", "count", "counts",
            "reset_counts"]
@@ -236,6 +239,79 @@ def in_device_span(name: str, device, fn: Callable, *args):
         return fn(*args)
     with _Span(name, device):
         return fn(*args)
+
+
+class _Box:
+    """The backward span of one ``traced_op`` call, open between its two
+    nodes."""
+    __slots__ = ("span",)
+
+    def __init__(self):
+        self.span = None
+
+
+class _BackwardStarts(torch.autograd.Function):
+    """Identity on the output; its backward counts the op's counters and,
+    under a profiler, opens the op's backward span."""
+
+    @staticmethod
+    def forward(ctx, out, box, name, counters):
+        ctx.box, ctx.name, ctx.counters = box, name, counters
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        for c in ctx.counters:
+            count(c)
+        if _autograd_profiler._is_profiler_enabled:
+            ctx.box.span = span(ctx.name, g.device)
+            ctx.box.span.__enter__()
+        return g, None, None, None
+
+
+class _BackwardEnds(torch.autograd.Function):
+    """Identity on the inputs that take a gradient; its backward closes
+    the span that ``_BackwardStarts`` opened."""
+
+    @staticmethod
+    def forward(ctx, box, *inputs):
+        ctx.box = box
+        return tuple(t.view_as(t) for t in inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.box.span is not None:
+            ctx.box.span.__exit__(None, None, None)
+            ctx.box.span = None
+        return (None,) + grads
+
+
+def traced_op(fwd_name: str, bwd_name: str, counters: Tuple[str, ...],
+              fn: Callable, *inputs):
+    """`fn(*inputs)` in the device span `fwd_name` (``in_device_span``),
+    each of `counters` counted once. Where a gradient flows to any of the
+    tensor `inputs` (None is passed on as it is), the backward counts
+    `counters` again and, while a profiler records, runs in the device
+    span `bwd_name`: it opens in an autograd node after the output and
+    closes in the one before the inputs that take a gradient, so it
+    encloses the backward of `fn`'s own nodes. Inputs other than tensors
+    (None, sizes) are passed on as they are; the output is a tensor."""
+    device = next(t.device for t in inputs if isinstance(t, torch.Tensor))
+    box = None
+    grad = [i for i, t in enumerate(inputs)
+            if isinstance(t, torch.Tensor) and t.requires_grad] \
+        if torch.is_grad_enabled() else []
+    if grad:
+        box = _Box()
+        inputs = list(inputs)
+        for i, t in zip(grad, _BackwardEnds.apply(
+                box, *(inputs[i] for i in grad))):
+            inputs[i] = t
+    for c in counters:
+        count(c)
+    out = in_device_span(fwd_name, device, fn, *inputs)
+    return _BackwardStarts.apply(out, box, bwd_name, counters) if grad \
+        else out
 
 
 def spans(name: Optional[str] = None, since_ns: Optional[int] = None,

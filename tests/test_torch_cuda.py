@@ -899,7 +899,8 @@ def test_vit_l16_at_448_matches_the_reference(gen):
 
 
 def _sdpa_node(out):
-    # attention's output → _BackwardStarts → the fused op's own node
+    # attention's output → profiling._BackwardStarts → the fused op's own
+    # node
     return out.grad_fn.next_functions[0][0].name()
 
 
@@ -954,6 +955,127 @@ def test_vit_train_step_launch_counts(gen, remat):
     assert np.isfinite(float(loss))
     c = profiling.counts()
     assert c["attention"] == (72 if remat else 48)
+    assert (c["bn_stats"], c["bn_corr"], c["bn_dx"], c["bn_act"]) == (
+        0, 0, 0, 0)
+    loss, scores = tr.eval_step(tr.state, *b)
+    assert bool(torch.isfinite(scores).all()) and np.isfinite(float(loss))
+
+
+# ---------------------------------------------------------------------------
+# Swin-L (models/swin.py) and the biased attention (ops/attention.py)
+# ---------------------------------------------------------------------------
+
+def _swin_reference():
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark.lib.swin_inputs import swin_params
+    from benchmark.reference import resnet as rref
+    from benchmark.reference import swin as sref
+    return swin_params, sref, rref
+
+
+@pytest.mark.parametrize("windows, heads", [(64, 6), (4, 24), (1, 48)])
+def test_biased_attention_on_the_pinned_backend(gen, windows, heads):
+    """The biased call at Swin-L's stage shapes (windows folded into the
+    heads, 144 tokens of 32, a (1, nW·H, N, N) bias broadcast over the
+    batch) runs the pinned backend's node, and matches the softmax math
+    within bf16's rounding, the bias's gradient (summed over the batch)
+    included."""
+    from learning_embeddings_tpu_torch.ops import attention as att
+
+    B, N = 2, 144
+    q, k, v = (torch.randn(B, windows * heads, N, 32, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    bias = torch.randn(1, windows * heads, N, N, device="cuda",
+                       generator=gen).to(torch.bfloat16).requires_grad_(True)
+    profiling.reset_counts()
+    out = att.attention(q, k, v, bias)
+    dout = torch.randn(out.shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert profiling.counts()["attention_bias"] == 2
+    node = _sdpa_node(out)
+    assert "ScaledDotProductEfficientAttention" in node, node
+    qf, kf, vf, bf = (t.detach().float().requires_grad_(True)
+                      for t in (q, k, v, bias))
+    want = torch.softmax(qf @ kf.transpose(-2, -1) / 32 ** 0.5 + bf,
+                         -1) @ vf
+    want.backward(dout.float())
+    assert _rel(out.detach(), want.detach()) <= 2 ** -7
+    for got, w in ((q, qf), (k, kf), (v, vf), (bias, bf)):
+        assert got.grad.shape == got.shape
+        assert _rel(got.grad, w.grad) <= 2 ** -6
+
+
+def test_swin_l_at_384_matches_the_reference(gen):
+    """Swin-L at 384², batch 2, bf16 on the card against the f32
+    reference: logits and every leaf's gradient (the 24 bias tables'
+    included) no further from the reference than 4× the reference rounded
+    to bf16 where the program rounds, plus 1e-3; worst and median leaf."""
+    from learning_embeddings_tpu_torch.models.heads import HierarchicalCNN
+
+    swin_params, sref, rref = _swin_reference()
+    levels = (5, 23, 116, 200)
+    arch = sref.Arch()
+    w = swin_params(11, "cuda", arch, sum(levels))
+    model = HierarchicalCNN("swin_l", levels, image_size=384).to(
+        "cuda", memory_format=torch.channels_last)
+    model.load_state_dict(w)
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (2, 384, 384, 3)).astype(np.uint8)
+    labels = np.stack([rng.randint(0, n, 2) for n in levels], axis=1)
+    x = rref.scale_images(torch.from_numpy(images).cuda())
+    ll = torch.from_numpy(labels).cuda()
+    logits = model.train()(x)
+    rref.multi_level_ce(logits, ll, levels).backward()
+    got = {k: p.grad for k, p in model.named_parameters()}
+
+    def reference(q):
+        with rref.float32_math():
+            p = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+            out = sref.head(p, sref.features(p, x, arch, q, recompute=True))
+            g = torch.autograd.grad(rref.multi_level_ce(out, ll, levels),
+                                    list(p.values()))
+        return out.detach(), dict(zip(p, g))
+
+    ref_logits, ref_grads = reference(rref.identity)
+    bf_logits, bf_grads = reference(rref.bf16_round)
+    assert _rel(logits, ref_logits) <= 4 * _rel(bf_logits, ref_logits) \
+        + 1e-3
+    gaps = {k: _rel(got[k], g) for k, g in ref_grads.items()}
+    bf = {k: _rel(bf_grads[k], g) for k, g in ref_grads.items()}
+    assert max(gaps.values()) <= 4 * max(bf.values()) + 1e-3, sorted(
+        gaps.items(), key=lambda kv: -kv[1])[:5]
+    assert np.median(list(gaps.values())) <= \
+        4 * np.median(list(bf.values())) + 1e-3
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_swin_train_step_counts(gen, remat):
+    """A Swin-L train step at 384² through ``ClassifierTrainer``: the
+    biased attention 48 times (72 with remat), the windows 96 (144), no
+    BatchNorm kernel; then an eval step of finite scores."""
+    from learning_embeddings_tpu_torch.hierarchy import toy_labelmap
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig, ClassifierTrainer)
+
+    lm = toy_labelmap(2, 3)
+    tr = ClassifierTrainer(lm, ClassifierConfig(
+        backbone="swin_l", image_size=384, batch_size=2, remat=remat,
+        device="cuda"))
+    b = tr.put_batch(*_cls_batch(lm, 2, 384, 0))
+    profiling.reset_counts()
+    tr.state, loss = tr.train_step(tr.state, *b)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    c = profiling.counts()
+    assert c["attention"] == c["attention_bias"] == (72 if remat else 48)
+    assert c["swin_windows"] == (144 if remat else 96)
     assert (c["bn_stats"], c["bn_corr"], c["bn_dx"], c["bn_act"]) == (
         0, 0, 0, 0)
     loss, scores = tr.eval_step(tr.state, *b)

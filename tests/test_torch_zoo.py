@@ -102,11 +102,11 @@ def zoo_pair(request):
 
 
 def test_backbones_are_the_jax_zoo():
-    # the JAX zoo, and the port's own ViT-L/16 (models/vit.py), which the
-    # JAX package does not have
+    # the JAX zoo, and the port's own ViT-L/16 (models/vit.py) and Swin-L
+    # (models/swin.py), which the JAX package does not have
     from learning_embeddings_tpu.models.resnet import BACKBONES as JAX
-    assert sorted(BACKBONES) == sorted(set(JAX) | {"vit_l_16"})
-    assert "vit_l_16" not in JAX
+    assert sorted(BACKBONES) == sorted(set(JAX) | {"vit_l_16", "swin_l"})
+    assert "vit_l_16" not in JAX and "swin_l" not in JAX
     for name in ("alexnet", "vgg11_bn"):
         trunk = BACKBONES[name]()
         assert trunk.feature_dim == JAX[name]().feature_dim

@@ -1,12 +1,22 @@
-"""Times PyTorch's fused scaled-dot-product attention on its flash and
-cuDNN backends at ViT-L/16's 448² shape, forward and backward, on one
-card (the port's ``ops/attention.py`` pins the faster, cuDNN):
+"""Times PyTorch's fused scaled-dot-product attention on one card, forward
+and backward, at the shapes the port's ``ops/attention.py`` serves:
 
     python3 tools/attention_backends.py [--batch 64] [--repeats 20]
 
-For each backend: device milliseconds of one forward and of one
-backward (CUDA events around `repeats` calls, after warm-up), and both
-for the 24 blocks of a train step. Prints one JSON line.
+* ViT-L/16 at 448² (16 heads, 785 tokens of 64), no bias: the flash and
+  cuDNN backends (the port pins cuDNN for the call without a bias).
+* Swin-L at 384² with window 12 (``models/swin.py``): at each of its four
+  stages, q, k, v of (B, nW·H, 144, 32), the windows folded into the
+  heads, and an additive bf16 bias of (1, nW·H, 144, 144) that takes a
+  gradient: the memory-efficient backend with the bias as a float
+  ``attn_mask``, cuDNN's with the same mask, and the math backend as a
+  yardstick (the port pins the faster of the fused ones that gives the
+  bias its gradient). A route that raises is reported with its error.
+
+For each route: device milliseconds of one forward and of one backward
+(CUDA events around `repeats` calls, after warm-up), and both over the
+blocks of a train step (24 for ViT-L; the stage's depth for Swin-L,
+summed over the stages). Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -18,6 +28,9 @@ import subprocess
 import torch
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+#: Swin-L at 384², window 12: (windows, heads, blocks) of each stage
+SWIN_STAGES = ((64, 6, 2), (16, 12, 2), (4, 24, 18), (1, 48, 2))
 
 
 def _ms(fn, repeats):
@@ -32,34 +45,77 @@ def _ms(fn, repeats):
     return a.elapsed_time(b) / repeats
 
 
+def _time(backend, q, k, v, dout, repeats, bias=None):
+    """{"fwd_ms", "bwd_ms"} of one call on `backend`, or {"error"}."""
+
+    def fwd():
+        with torch.no_grad():
+            sdpa(q, k, v, attn_mask=bias)
+
+    def both():
+        grads = [t for t in (q, k, v, bias) if t is not None]
+        torch.autograd.grad(sdpa(q, k, v, attn_mask=bias), grads, dout)
+    try:
+        with sdpa_kernel([backend]):
+            f = _ms(fwd, repeats)
+            fb = _ms(both, repeats)
+    except RuntimeError as e:
+        return {"error": str(e).splitlines()[0][:300]}
+    return {"fwd_ms": f, "bwd_ms": fb - f}
+
+
+def _tensors(g, shape, n):
+    return [torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+            .requires_grad_(True) for _ in range(n)]
+
+
+def vit(batch, repeats, g):
+    q, k, v, dout = _tensors(g, (batch, 16, 785, 64), 4)
+    out = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        r = _time(backend, q, k, v, dout, repeats)
+        if "fwd_ms" in r:
+            r["step_ms_24_blocks"] = 24 * (r["fwd_ms"] + r["bwd_ms"])
+        out[name] = r
+    return out
+
+
+def swin(batch, repeats, g):
+    routes = (("efficient", SDPBackend.EFFICIENT_ATTENTION),
+              ("cudnn", SDPBackend.CUDNN_ATTENTION),
+              ("math", SDPBackend.MATH))
+    out = {name: {"stages": []} for name, _ in routes}
+    for nW, H, depth in SWIN_STAGES:
+        q, k, v, dout = _tensors(g, (batch, nW * H, 144, 32), 4)
+        (bias,) = _tensors(g, (1, nW * H, 144, 144), 1)
+        for name, backend in routes:
+            r = _time(backend, q, k, v, dout, repeats, bias)
+            out[name]["stages"].append(dict(r, windows=nW, heads=H,
+                                            blocks=depth))
+        del q, k, v, dout, bias
+        torch.cuda.empty_cache()
+    for name, _ in routes:
+        st = out[name]["stages"]
+        if all("fwd_ms" in s for s in st):
+            out[name]["step_ms"] = sum(s["blocks"] * (s["fwd_ms"]
+                                                      + s["bwd_ms"])
+                                       for s in st)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--repeats", type=int, default=20)
     a = p.parse_args(argv)
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(a.batch, 16, 785, 64, device="cuda", generator=g)
-               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
-    dout = torch.randn(a.batch, 16, 785, 64, device="cuda",
-                       generator=g).to(torch.bfloat16)
     out = {"batch": a.batch, "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), "torch": torch.__version__}
-    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
-                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
-
-        def fwd():
-            with torch.no_grad():
-                sdpa(q, k, v)
-
-        def both():
-            sdpa(q, k, v).backward(dout)
-        with sdpa_kernel([backend]):
-            f = _ms(fwd, a.repeats)
-            fb = _ms(both, a.repeats)
-        out[name] = {"fwd_ms": f, "bwd_ms": fb - f,
-                        "step_ms_24_blocks": 24 * fb}
+    out["vit_l16_448"] = vit(a.batch, a.repeats, g)
+    out["swin_l_384_biased"] = swin(a.batch, a.repeats, g)
     print(json.dumps(out), flush=True)
 
 
