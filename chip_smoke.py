@@ -36,6 +36,17 @@ and prints no result line):
               1e-5·Σ_d terms + 1e-6); asserts the route each shape
               launched, and times the exact_d and generic kernels in
               turns at the six eval shapes;
+            - window_attention (CUDA C++, the Swin's kernel pair) at
+              Swin-L's four stage shapes at 384² (nW·H 384, 192, 96, 48;
+              144 tokens of 32) at the Swin cell's batch 64, shifted and
+              not, forward and backward on bf16 inputs against
+              window_attention_plain (output within 2^-7 of its norm, the
+              packed qkv and the bias gradients within 2^-6); timed a
+              stage beside the plain route, the memory-efficient SDPA (the
+              library yardstick) and the byte bound (24·T·C bytes a block
+              and image: 6.29 ms a step); then one Swin-L train step at
+              batch 64 with the counters reset just before it: 48
+              "window_attention", 48 "attention" and "attention_bias";
             the additions for the model zoo: K1/K2 at VGG11BN@448's 8
             BatchNorm shapes (batch 64), K1 at the ghost route's row
             prefixes of ResNet-50@448's 12 shapes (8 rows) and K1's
@@ -281,13 +292,21 @@ KERNEL_SRC = {"bn_stats": "learning_embeddings_tpu_torch/ops/bn_triton.py",
               "bn_dx": "learning_embeddings_tpu_torch/ops/bn_triton.py",
               "bn_act": "learning_embeddings_tpu_torch/ops/bn_triton.py",
               "pairwise_order":
-                  "learning_embeddings_tpu_torch/csrc/pairwise_order.cu"}
+                  "learning_embeddings_tpu_torch/csrc/pairwise_order.cu",
+              "window_attention":
+                  "learning_embeddings_tpu_torch/csrc/window_attention.cu"}
 TPU_KERNELS = {"bn_stats": "learning_embeddings_tpu/ops/bn_pallas.py:52",
                "bn_corr": "learning_embeddings_tpu/ops/bn_pallas.py:64",
                "bn_dx": None,
                "bn_act": None,
                "pairwise_order":
-                   "learning_embeddings_tpu/geometry/pairwise.py:46"}
+                   "learning_embeddings_tpu/geometry/pairwise.py:46",
+               "window_attention": None}
+#: Swin-L at 384², window 12 (head width 32): (windows, heads, grid,
+#: blocks) of each stage, and the Swin cell's batch
+SWIN_L_STAGES = ((64, 6, 96, 2), (16, 12, 48, 2), (4, 24, 24, 18),
+                 (1, 48, 12, 2))
+SWIN_WINDOW, SWIN_HEAD_WIDTH, SWIN_BATCH = 12, 32, 64
 #: sizes of the ETHEC val and test splits: the joint eval's image counts
 VAL_IMAGES, TEST_IMAGES = 5286, 5049
 EMB_DIM = 10
@@ -853,6 +872,229 @@ def k3_phase(build, n_labels):
     return {"build": report, "shapes": rows}
 
 
+def _rel_gap(got, want):
+    """‖got − want‖ / ‖want‖ in f32."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def window_attention_bound_ms(batch, windows, heads):
+    """The window attention's byte bound of one block's forward and
+    backward: 24·T·C bytes an image (bf16 q, k, v read and o written in the
+    forward; q, k, v, o and dO read and dq, dk, dv written in the
+    backward), T = nW·N tokens, C = heads·d; the bias is not counted."""
+    T, C = windows * SWIN_WINDOW ** 2, heads * SWIN_HEAD_WIDTH
+    return 24 * T * C * batch / HBM_BYTES_PER_S * 1e3
+
+
+def check_window_attention(windows, heads, grid, shifted, batch, gen,
+                           timed):
+    """The kernel pair at one Swin-L stage shape, `batch` images, against
+    the plain route on the same bf16 inputs: the output within 2^-7 of its
+    norm, the packed qkv gradient and the bias's gradient (summed over the
+    images) within 2^-6, the card tests' limits; one forward and one
+    backward counted as "window_attention". Where `timed`: the kernel's
+    forward (recorded for autograd, as in a train step) and backward, the
+    plain route's, and the memory-efficient SDPA's on the same q, k, v
+    unpacked and the same bias (the port's route until the kernel), each
+    fwd + bwd in ms."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from learning_embeddings_tpu_torch.models import swin
+    from learning_embeddings_tpu_torch.ops import window_attention as wa
+    from learning_embeddings_tpu_torch.utils import profiling
+
+    N, d = SWIN_WINDOW ** 2, SWIN_HEAD_WIDTH
+    C = heads * d
+    qkv = torch.randn(batch, windows, N, 3 * C, device=DEV,
+                      generator=gen).to(torch.bfloat16).requires_grad_(True)
+    att = swin.ShiftedWindowAttention(C, heads, SWIN_WINDOW).to(DEV)
+    with torch.no_grad():
+        att.relative_position_bias_table.copy_(torch.randn(
+            att.relative_position_bias_table.shape, device=DEV,
+            generator=gen) * 0.5)
+    mask = (swin.shift_mask(grid, SWIN_WINDOW, SWIN_WINDOW // 2).to(DEV)
+            if shifted else None)
+    bias = att.bias(mask, windows).detach().to(torch.bfloat16) \
+        .requires_grad_(True)
+    dout = torch.randn(batch, windows, N, C, device=DEV, generator=gen).to(
+        torch.bfloat16)
+
+    def grads(fn):
+        out = fn(qkv, bias, heads)
+        dqkv, dbias = torch.autograd.grad(out, (qkv, bias), dout)
+        torch.cuda.synchronize()
+        return out.detach(), dqkv, dbias
+
+    before = profiling.counts()
+    got = grads(wa.window_attention)
+    launched = (profiling.counts() - before)["window_attention"]
+    want = grads(wa.window_attention_plain)
+    what = (f"window_attention (B {batch}, nW {windows}, H {heads}, "
+            f"{'shifted' if shifted else 'not shifted'})")
+    if launched != 2:
+        raise AssertionError(f"{what}: {launched} kernel launches counted "
+                             f"for one forward and backward, expected 2")
+    if got[2].dtype != torch.bfloat16 or got[1].shape != qkv.shape:
+        raise AssertionError(f"{what}: qkv gradient {tuple(got[1].shape)}, "
+                             f"bias gradient {got[2].dtype}")
+    rel = {k: _rel_gap(g, w) for k, g, w in zip(("out", "dqkv", "dbias"),
+                                                   got, want)}
+    limits = {"out": 2 ** -7, "dqkv": 2 ** -6, "dbias": 2 ** -6}
+    if any(rel[k] > limits[k] for k in rel):
+        raise AssertionError(f"{what}: relative gaps to the plain route "
+                             f"{rel}, limits {limits}")
+    row = {"windows": windows, "heads": heads, "grid": grid,
+           "shifted": shifted, "rel_err": rel,
+           "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want))}
+    del got, want
+    if timed:
+        B, H = batch, heads
+        q, k, v = (t.contiguous().requires_grad_(True) for t in qkv.detach()
+                   .view(B, windows, N, 3, H, d).permute(3, 0, 1, 4, 2, 5)
+                   .reshape(3, B, windows * H, N, d).unbind(0))
+        dsplit = dout.view(B, windows, N, H, d).transpose(2, 3).reshape(
+            B, windows * H, N, d)
+
+        def library():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return torch.autograd.grad(sdpa(q, k, v, attn_mask=bias),
+                                           (q, k, v, bias), dsplit)
+
+        def route(fn):
+            return lambda: torch.autograd.grad(fn(qkv, bias, heads),
+                                               (qkv, bias), dout)
+
+        fwd_ms = cuda_ms(lambda: wa.window_attention(qkv, bias, heads),
+                         [()], iters=10)
+        row.update(
+            fwd_ms=fwd_ms,
+            ms=cuda_ms(route(wa.window_attention), [()], iters=10),
+            plain_ms=cuda_ms(route(wa.window_attention_plain), [()],
+                             iters=5),
+            library_ms=cuda_ms(library, [()], iters=10),
+            bound_ms=window_attention_bound_ms(batch, windows, heads))
+        row["bwd_ms"] = row["ms"] - fwd_ms
+    return row
+
+
+def swin_step_launches(labelmap, batch):
+    """One Swin-L train step at 384² (bf16, multi_level_ce, Adam) after a
+    warm-up step, the counters reset just before it: every window
+    attention through the kernel pair (48 "window_attention", with 48
+    "attention" and "attention_bias" and 96 "swin_windows"), no BatchNorm
+    kernel, a finite loss."""
+    import torch
+
+    from learning_embeddings_tpu_torch.train.classifier import (
+        ClassifierConfig, ClassifierTrainer)
+    from learning_embeddings_tpu_torch.utils import profiling
+
+    trainer = ClassifierTrainer(labelmap, ClassifierConfig(
+        backbone="swin_l", criterion="multi_level_ce", optimizer="adam",
+        lr=1e-5, image_size=384, batch_size=batch, seed=0,
+        dtype=torch.bfloat16, device=DEV))
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    images = torch.randint(0, 256, (batch, 384, 384, 3), dtype=torch.uint8,
+                           device=DEV, generator=gen)
+    paths = torch.as_tensor(labelmap.leaf_paths(), device=DEV)
+    leaves = torch.randint(0, labelmap.levels[-1], (batch,), device=DEV,
+                           generator=gen)
+    batch_t = trainer.put_batch(images, paths[leaves],
+                                torch.zeros((batch, labelmap.n_classes),
+                                            device=DEV))
+    state, loss = trainer.train_step(trainer.state, *batch_t)
+    torch.cuda.synchronize()
+    profiling.reset_counts()
+    state, loss = trainer.train_step(state, *batch_t)
+    torch.cuda.synchronize()
+    c = profiling.counts()
+    names = ("window_attention", "attention", "attention_bias",
+             "swin_windows", "bn_stats", "bn_corr", "bn_dx", "bn_act")
+    got = {k: c.get(k, 0) for k in names}
+    want = dict(zip(names, (48, 48, 48, 96, 0, 0, 0, 0)))
+    if got != want or not math.isfinite(float(loss)):
+        raise AssertionError(f"Swin-L step (B {batch}): counts {got}, "
+                             f"expected {want}; loss {float(loss)}")
+    del trainer, state, batch_t, images
+    return got
+
+
+def window_attention_phase(labelmap, batch=SWIN_BATCH):
+    """The window attention's kernel pair at Swin-L's four stage shapes at
+    the Swin cell's batch, shifted and not (stage 4 has no shift), held
+    against the plain route and timed once a stage beside the
+    memory-efficient SDPA and the byte bound; then the counts of one
+    Swin-L train step at that batch. The step's ms sum each stage's
+    forward and backward over its blocks."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    t0 = time.perf_counter()
+    rows = []
+    for windows, heads, grid, depth in SWIN_L_STAGES:
+        for shifted in ((True, False) if grid > SWIN_WINDOW else (False,)):
+            row = check_window_attention(windows, heads, grid, shifted,
+                                         batch, gen, timed=shifted
+                                         or grid == SWIN_WINDOW)
+            row["blocks"] = depth
+            rows.append(row)
+            log(f"[kernels] window_attention nW {windows} H {heads} "
+                f"{'shifted' if shifted else 'plain'}: rel err "
+                f"{ {k: round(v, 5) for k, v in row['rel_err'].items()} }"
+                + (f", {row['ms']:.3f} ms (fwd {row['fwd_ms']:.3f}; plain "
+                   f"{row['plain_ms']:.2f}, library {row['library_ms']:.3f},"
+                   f" bound {row['bound_ms']:.3f}) a block"
+                   if "ms" in row else ""))
+            torch.cuda.empty_cache()
+    timed = [r for r in rows if "ms" in r]
+    step = {k: sum(r[k] * r["blocks"] for r in timed)
+            for k in ("ms", "fwd_ms", "bwd_ms", "plain_ms", "library_ms",
+                      "bound_ms")}
+    launches = swin_step_launches(labelmap, batch)
+    torch.cuda.empty_cache()
+    log(f"[kernels] window_attention over Swin-L's 24 blocks at B {batch}: "
+        f"{step['ms']:.2f} ms a step (plain {step['plain_ms']:.2f}, library "
+        f"{step['library_ms']:.2f}, bound {step['bound_ms']:.2f}); a step's "
+        f"counts {launches}; {time.perf_counter() - t0:.1f} s")
+    return {"batch": batch, "step": step, "step_launches": launches,
+            "shapes": rows}
+
+
+def window_attention_record(wa_result, by_path):
+    """The kernels line's record of the window attention's kernel pair."""
+    rows = wa_result["shapes"]
+    return {
+        "name": "window_attention", "route": "cuda",
+        "source": KERNEL_SRC["window_attention"],
+        "replaces": TPU_KERNELS["window_attention"],
+        "replaces_note": "no TPU kernel: the JAX package has no "
+                         "transformer; replaces the memory-efficient SDPA "
+                         "call and the q/k/v split, output transpose and "
+                         "dq/dk/dv stack around it",
+        "launches": wa_result["step_launches"]["window_attention"],
+        "launches_by_path": dict(
+            by_path("window_attention"),
+            **{f"swin_l_384_b{wa_result['batch']}_step":
+               wa_result["step_launches"]["window_attention"]}),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_rel_err": {k: max(r["rel_err"][k] for r in rows)
+                        for k in ("out", "dqkv", "dbias")},
+        **wa_result["step"], "bound_by": "bytes",
+        "library_note": "memory-efficient SDPA with the bias as its float "
+                        "mask, on q, k, v already split (a yardstick the "
+                        "port no longer calls)",
+        "batch": wa_result["batch"],
+        "shapes": [{k: r[k] for k in ("windows", "heads", "blocks", "ms",
+                                      "fwd_ms", "bwd_ms", "plain_ms",
+                                      "library_ms", "bound_ms")}
+                   for r in rows if "ms" in r],
+    }
+
+
 def bn_train_phase():
     """batch_norm_train forward + backward on the card against the CPU."""
     import torch
@@ -1161,10 +1403,20 @@ def slice_phase(labelmap, batch, steps=3, warmup=2):
     multihot = torch.zeros((batch, labelmap.n_classes), device=DEV)
     batch_t = trainer.put_batch(images, paths[leaves], multihot)
 
+    # every layer's input shape, read where the trunk calls it: its `act`
+    # (a forward hook would miss the layers the blocks reach through act)
     seen = []
-    hooks = [m.register_forward_pre_hook(
-        lambda m, inp: seen.append((inp[0].numel() // inp[0].shape[1],
-                                    inp[0].shape[1]))) for m in bns]
+
+    def watch(m):
+        act = m.act
+
+        def counted(x, *a, **k):
+            seen.append((x.numel() // x.shape[1], x.shape[1]))
+            return act(x, *a, **k)
+        m.act = counted
+
+    for m in bns:
+        watch(m)
 
     # the main path: counts set to 0 just before, read just after
     profiling.reset_counts()
@@ -1173,8 +1425,8 @@ def slice_phase(labelmap, batch, steps=3, warmup=2):
         state, loss = trainer.train_step(state, *batch_t)
         losses.append(loss)
         if i == 0:
-            for h in hooks:
-                h.remove()
+            for m in bns:
+                del m.act
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4159,7 +4411,7 @@ def mesh_phase(labelmap):
 
 def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                 eval_prof, hyp_result, label_results, cli_paths, r18_rows,
-                zoo_rows, mesh_rows):
+                zoo_rows, mesh_rows, wa_result):
     """One record per kernel. BN kernels: one classifier step's 53
     launches at its shapes; pairwise_order: one joint eval's calls at its
     shapes through the route the wrapper takes (exact_d at D = 10), with
@@ -4331,6 +4583,7 @@ def kernel_line(bn_rows, k3_result, slice_result, joint_result, prof,
                                 ["ms"] if eval_prof["kernels"]
                                 ["pairwise_order"] else None),
     })
+    kernels.append(window_attention_record(wa_result, by_path))
     return kernels
 
 
@@ -4356,6 +4609,7 @@ def main(argv=None):
     zoo_rows = zoo_kernels_phase(args.batch)
     mesh_rows = mesh_kernels_phase()
     k3_result = k3_phase(build, labelmap.n_classes)
+    wa_result = window_attention_phase(labelmap)
     bn_train_phase()
     small_step_phase(toy_labelmap(3, 3))
     small_joint_phase()
@@ -4432,7 +4686,7 @@ def main(argv=None):
         shutil.rmtree(EXPERIMENTS, ignore_errors=True)
     kernels = kernel_line(bn_rows, k3_result, result, joint, prof, eprof,
                           hyp, label, cli_paths, r18_rows, zoo_rows,
-                          mesh_rows)
+                          mesh_rows, wa_result)
 
     details = {"nvidia_smi": smi, "torch": torch.__version__,
                "cuda": torch.version.cuda, "slice": result,
@@ -4447,6 +4701,7 @@ def main(argv=None):
                "mesh_kernel_shapes": mesh_rows,
                "cli_launches": cli_paths,
                "kernel_shapes": bn_rows, "pairwise_order": k3_result,
+               "window_attention": wa_result,
                "kernels": kernels,
                "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

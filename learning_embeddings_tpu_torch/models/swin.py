@@ -25,9 +25,11 @@ port's own.
   counted as "swin_windows": 4 a block and train step, 96 for Swin-L (144
   with ``remat``, whose recomputed forward counts again).
 * The attention of a window: one qkv projection (C → 3C, with bias),
-  q, k, v laid out with the windows folded into the heads, (B, nW·H, N,
-  d), and softmax(q·kᵀ/√d + B + M)·v (``ops/attention.py``'s biased
-  call), then ``proj``. B is the learned relative-position bias: a table
+  softmax(q·kᵀ/√d + B + M)·v of every window and head read from it as it
+  lies, (B, nW, N, 3C), and written as (B, nW, N, C)
+  (``ops/window_attention.py``: on a card a hand-written kernel pair, on
+  the CPU ``ops/attention.py``'s softmax math), then ``proj``. B is the
+  learned relative-position bias: a table
   of (2·window − 1)² rows × H gathered by the fixed index of §3.2, (H,
   N, N). M is the shift's region mask, (nW, N, N): −100 between tokens
   that the roll brought from different regions of the grid, 0 elsewhere,
@@ -61,7 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attention
+from ..ops.window_attention import window_attention
 from ..utils import profiling
 from .resnet import Conv2d
 from .vit import LayerNorm, Linear
@@ -178,19 +180,13 @@ class ShiftedWindowAttention(nn.Module):
             2, 0, 1)
         b = (rel.unsqueeze(0) + mask.unsqueeze(1) if mask is not None
              else rel.expand(n_windows, -1, -1, -1))
-        # the fused attention takes a bias whose last dim is contiguous
+        # the window attention's kernel takes a contiguous bias
         return b.reshape(1, n_windows * self.heads, N, N).contiguous()
 
     def forward(self, x, mask: Optional[torch.Tensor]):
-        B, nW, N, C = x.shape
-        H = self.heads
         qkv = self.qkv(x)
-        # (B, nW, N, 3, H, d) → three (B, nW·H, N, d), one copy
-        q, k, v = qkv.view(B, nW, N, 3, H, C // H).permute(
-            3, 0, 1, 4, 2, 5).reshape(3, B, nW * H, N, C // H).unbind(0)
-        y = attention(q, k, v, self.bias(mask, nW).to(q.dtype))
-        return self.proj(y.view(B, nW, H, N, C // H).transpose(2, 3)
-                         .reshape(B, nW, N, C))
+        bias = self.bias(mask, x.shape[1]).to(qkv.dtype)
+        return self.proj(window_attention(qkv, bias, self.heads))
 
 
 class SwinBlock(nn.Module):

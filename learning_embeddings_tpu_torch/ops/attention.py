@@ -1,6 +1,9 @@
 """Multi-head attention softmax(q·kᵀ/√D [+ bias])·v over (B, H, N, D)
-tensors, the one attention op of the port (``models/vit.py``, without a
-bias; ``models/swin.py``, with one).
+tensors: the ViT's attention (``models/vit.py``, without a bias). The
+Swin trunk calls ``ops/window_attention.py``, whose CPU route is this
+module's softmax math; the biased route here is the yardstick that its
+tests and ``tools/attention_backends.py`` hold the window kernels
+against.
 
 * Without a bias, on a card, it is PyTorch's fused scaled-dot-product
   attention pinned to the cuDNN backend (``torch.nn.attention.
@@ -28,10 +31,10 @@ bias; ``models/swin.py``, with one).
 Every call counts as "attention" (``utils/profiling.py``'s ``count``),
 and a call with a bias also as "attention_bias": one for the forward
 and one for its backward, so a ViT-L/16 train step counts 48 "attention"
-(72 with ``remat``, whose recomputed forward counts again), and a Swin-L
-step 48 of each (72 with ``remat``). While a ``torch.profiler`` records,
-the forward runs in the device span "attention.fwd" and the backward in
-"attention.bwd" (``profiling.traced_op``): the backward's span opens in
+(72 with ``remat``, whose recomputed forward counts again). While a
+``torch.profiler`` records, the forward runs in the device span
+"attention.fwd" and the backward in "attention.bwd"
+(``profiling.traced_op``): the backward's span opens in
 the autograd node after the output and closes in the one before the
 inputs, so it encloses the attention's own backward node.
 """

@@ -176,24 +176,28 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build_library(source: str = _SOURCE) -> str:
+def build_library(source: str = _SOURCE, name: str = "pairwise_order",
+                  defines: tuple = ()) -> str:
     """Compile the kernels' source (or another copy of it, such as the
-    variants of ``k3_variants.py``) with nvcc if this source and these
-    flags have no library yet; returns the library's path."""
+    variants of ``k3_variants.py``, or another kernel's source under its
+    `name`, with `defines` as -D flags: ``ops/window_attention.py``) with
+    nvcc if this source and these flags have no library yet; returns the
+    library's path."""
     with open(source, "rb") as f:
         src = f.read()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    so = os.path.join(_BUILD_DIR, f"pairwise_order-{key[:16]}.so")
+    flags = _NVCC_FLAGS + [f"-D{d}" for d in defines]
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
+    so = os.path.join(_BUILD_DIR, f"{name}-{key[:16]}.so")
     if os.path.exists(so):
         return so
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, source],
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, source],
                           capture_output=True, text=True)
     with open(so[:-3] + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"pairwise_order: nvcc failed "
+        raise RuntimeError(f"{name}: nvcc failed "
                            f"({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, so)   # atomic: a concurrent builder sees all or nothing
     return so

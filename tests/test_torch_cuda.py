@@ -1012,6 +1012,176 @@ def test_biased_attention_on_the_pinned_backend(gen, windows, heads):
         assert _rel(got.grad, w.grad) <= 2 ** -6
 
 
+#: Swin-L at 384² (window 12): (windows, heads, grid) of each stage
+SWIN_L_STAGES = [(64, 6, 96), (16, 12, 48), (4, 24, 24), (1, 48, 12)]
+
+
+def _window_inputs(gen, windows, heads, grid, shifted, B=4, d=32):
+    """qkv (B, nW, 144, 3C) bf16 and the block's B + M bias (1, nW·H, 144,
+    144) bf16, both taking a gradient: the bias from a table of std 0.5
+    (the cell's), with the shift's mask where `shifted`; and dO."""
+    from learning_embeddings_tpu_torch.models import swin
+
+    N, C = 144, heads * d
+    qkv = torch.randn(B, windows, N, 3 * C, device="cuda",
+                      generator=gen).to(torch.bfloat16).requires_grad_(True)
+    att = swin.ShiftedWindowAttention(C, heads, 12).cuda()
+    with torch.no_grad():
+        att.relative_position_bias_table.copy_(torch.randn(
+            att.relative_position_bias_table.shape, device="cuda",
+            generator=gen) * 0.5)
+    mask = swin.shift_mask(grid, 12, 6).cuda() if shifted else None
+    bias = att.bias(mask, windows).detach().to(torch.bfloat16) \
+        .requires_grad_(True)
+    dout = torch.randn(B, windows, N, C, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    return qkv, bias, dout
+
+
+def _window_grads(fn, qkv, bias, dout, heads):
+    for t in (qkv, bias):
+        t.grad = None
+    out = fn(qkv, bias, heads)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    return out.detach(), qkv.grad, bias.grad
+
+
+@pytest.mark.parametrize("windows, heads, grid, shifted", [
+    (w, h, g, s) for w, h, g in SWIN_L_STAGES
+    for s in ((True, False) if g > 12 else (False,))],
+    ids=lambda v: str(v))
+def test_window_attention_kernel_matches_plain(gen, windows, heads, grid,
+                                               shifted):
+    """The kernel pair at each of Swin-L's four stage shapes (nW·H 384,
+    192, 96, 48; 144 tokens of 32), B 4, shifted and not, against the plain
+    route on the same bf16 inputs (f32 scores and softmax, each output
+    rounded once): the output within 2^-7 of its norm, as the pinned
+    backend's biased call is held (the kernel rounds P to bf16 for P·v, as
+    that kernel does); the packed qkv gradient and the bias's gradient
+    within 2^-6 (P and dS rounded to bf16 for their products). Each pass
+    counts once as "window_attention"; the ragged stage shapes run in one
+    chunk or several (``launch_plan``)."""
+    from learning_embeddings_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, dout = _window_inputs(gen, windows, heads, grid, shifted)
+    before = profiling.counts()
+    got = _window_grads(wa.window_attention, qkv, bias, dout, heads)
+    assert _since(before, "window_attention", "attention",
+                  "attention_bias") == (2, 2, 2)
+    want = _window_grads(wa.window_attention_plain, qkv, bias, dout, heads)
+    assert got[0].shape == want[0].shape and got[1].shape == qkv.shape
+    assert got[2].dtype == torch.bfloat16 and got[2].shape == bias.shape
+    assert _rel(got[0], want[0].float()) <= 2 ** -7
+    assert _rel(got[1], want[1].float()) <= 2 ** -6
+    assert _rel(got[2], want[2].float()) <= 2 ** -6
+
+
+@pytest.mark.parametrize("N, d", [(49, 32), (144, 64), (16, 16)],
+                         ids=["window_7", "head_64", "window_4_head_16"])
+def test_window_attention_kernel_at_other_shapes(gen, N, d):
+    """The kernel pair at shapes Swin-L does not use, each built for its
+    own (N, d): 49 tokens (window 7: rows and keys past N masked, the
+    bias read element by element), head width 64 (the backward in one
+    shared-memory stage) and 16: against the plain route, as above."""
+    from learning_embeddings_tpu_torch.ops import window_attention as wa
+
+    B, nW, H = 3, 4, 3
+    qkv = torch.randn(B, nW, N, 3 * H * d, device="cuda",
+                      generator=gen).to(torch.bfloat16).requires_grad_(True)
+    bias = (torch.randn(1, nW * H, N, N, device="cuda", generator=gen)
+            * 0.5).to(torch.bfloat16).requires_grad_(True)
+    dout = torch.randn(B, nW, N, H * d, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    got = _window_grads(wa.window_attention, qkv, bias, dout, H)
+    want = _window_grads(wa.window_attention_plain, qkv, bias, dout, H)
+    assert _rel(got[0], want[0].float()) <= 2 ** -7
+    assert _rel(got[1], want[1].float()) <= 2 ** -6
+    assert _rel(got[2], want[2].float()) <= 2 ** -6
+
+
+def test_window_attention_bias_gradient_beats_the_pinned_backend(gen):
+    """At stage 1's shape (B 4, shifted) the kernel's bias gradient, summed
+    over the images in f32 and rounded once, lies at least as close to an
+    f32 reference on the same bf16 inputs as the memory-efficient SDPA
+    route's (a bf16 gradient per image, then summed), and so do its output
+    and qkv gradient within 1.5× of that route's (both round P and dS to
+    bf16 for their products). Two runs give the same bits (no atomics)."""
+    from learning_embeddings_tpu_torch.ops import attention as att
+    from learning_embeddings_tpu_torch.ops import window_attention as wa
+
+    windows, heads, grid = SWIN_L_STAGES[0]
+    qkv, bias, dout = _window_inputs(gen, windows, heads, grid, True)
+
+    def sdpa(qkv, bias, heads):
+        B, nW, N, C3 = qkv.shape
+        q, k, v = qkv.view(B, nW, N, 3, heads, -1).permute(
+            3, 0, 1, 4, 2, 5).reshape(3, B, nW * heads, N, -1).unbind(0)
+        return att.attention(q, k, v, bias).view(B, nW, heads, N, -1) \
+            .transpose(2, 3).reshape(B, nW, N, C3 // 3)
+
+    got = _window_grads(wa.window_attention, qkv, bias, dout, heads)
+    again = _window_grads(wa.window_attention, qkv, bias, dout, heads)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    lib = _window_grads(sdpa, qkv, bias, dout, heads)
+    qf, bf = (t.detach().float().requires_grad_(True) for t in (qkv, bias))
+    want = _window_grads(wa.window_attention_plain, qf, bf, dout.float(),
+                         heads)
+    gaps = [(_rel(g, w), _rel(s, w)) for g, s, w in zip(got, lib, want)]
+    assert gaps[2][0] <= gaps[2][1], gaps
+    assert all(g <= 1.5 * s for g, s in gaps[:2]), gaps
+
+
+def test_window_attention_bias_without_gradient(gen):
+    """A bias that takes no gradient (as ``no_relative_bias`` plants one in
+    the unshifted blocks) is passed through: no bias gradient, the same
+    qkv gradient bit for bit."""
+    from learning_embeddings_tpu_torch.ops import window_attention as wa
+
+    windows, heads, grid = SWIN_L_STAGES[1]
+    qkv, bias, dout = _window_inputs(gen, windows, heads, grid, True)
+    _, dqkv, _ = _window_grads(wa.window_attention, qkv, bias, dout, heads)
+    fixed = bias.detach()
+    out = wa.window_attention(qkv, fixed, heads)
+    qkv.grad = None
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fixed.grad is None and torch.equal(qkv.grad, dqkv)
+
+
+@pytest.mark.parametrize("case", ["f32", "tokens", "head_width",
+                                  "bias_shape", "bias_strided",
+                                  "bias_dtype"])
+def test_window_attention_refuses(gen, case):
+    """The kernel route raises where it cannot take the inputs: there is
+    no fallback."""
+    from learning_embeddings_tpu_torch.ops import window_attention as wa
+
+    B, nW, H, N, d = 2, 4, 2, 144, 32
+    if case == "tokens":
+        N = 145
+    if case == "head_width":
+        d = 8
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    qkv = torch.randn(B, nW, N, 3 * H * d, device="cuda",
+                      generator=gen).to(dtype)
+    bias = torch.zeros(1, nW * H, N, N, device="cuda", dtype=dtype)
+    if case == "bias_shape":
+        bias = bias[:, :-1]
+    if case == "bias_strided":
+        bias = torch.zeros(1, nW * H, N, 2 * N, device="cuda",
+                           dtype=dtype)[..., ::2]
+    if case == "bias_dtype":
+        bias = bias.float()
+    match = {"f32": "bf16", "tokens": "tokens", "head_width": "head width",
+             "bias_shape": "expected", "bias_strided": "contiguous",
+             "bias_dtype": "dtype"}[case]
+    before = profiling.counts()
+    with pytest.raises(ValueError, match=match):
+        wa.window_attention(qkv, bias, H)
+    assert _since(before, "window_attention") == (0,)
+
+
 def test_swin_l_at_384_matches_the_reference(gen):
     """Swin-L at 384², batch 2, bf16 on the card against the f32
     reference: logits and every leaf's gradient (the 24 bias tables'
@@ -1075,6 +1245,8 @@ def test_swin_train_step_counts(gen, remat):
     assert np.isfinite(float(loss))
     c = profiling.counts()
     assert c["attention"] == c["attention_bias"] == (72 if remat else 48)
+    # every window attention through the kernel pair
+    assert c["window_attention"] == (72 if remat else 48)
     assert c["swin_windows"] == (144 if remat else 96)
     assert (c["bn_stats"], c["bn_corr"], c["bn_dx"], c["bn_act"]) == (
         0, 0, 0, 0)

@@ -297,6 +297,87 @@ def test_biased_attention_counts_and_refuses_another_dtype():
         att.attention(q, q, q, bias.to(torch.bfloat16))
 
 
+def _old_window_path(qkv, bias, heads):
+    # the block's attention before the window attention op: q, k, v
+    # unpacked, the biased call, the output transposed back
+    B, nW, N, C3 = qkv.shape
+    d = C3 // 3 // heads
+    q, k, v = qkv.view(B, nW, N, 3, heads, d).permute(
+        3, 0, 1, 4, 2, 5).reshape(3, B, nW * heads, N, d).unbind(0)
+    y = att.attention(q, k, v, bias)
+    return y.view(B, nW, heads, N, d).transpose(2, 3).reshape(
+        B, nW, N, C3 // 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0, 2], ids=["w_msa", "sw_msa"])
+def test_window_attention_plain_route_is_the_old_path(dtype, shift):
+    # grid 8, window 4, 2 heads of 8: the output and the qkv and bias
+    # gradients bit for bit, since the plain route runs the same ops
+    from learning_embeddings_tpu_torch.ops import window_attention as wa
+
+    G, M, heads, C, Bi = 8, 4, 2, 16, 3
+    gen = torch.Generator().manual_seed(shift)
+    a = swin.ShiftedWindowAttention(C, heads, M)
+    with torch.no_grad():
+        a.relative_position_bias_table.normal_(0, 0.5, generator=gen)
+    mask = swin.shift_mask(G, M, shift) if shift else None
+    x = torch.randn(Bi, (G // M) ** 2, M * M, C, generator=gen)
+    dout = torch.randn(Bi, (G // M) ** 2, M * M, C, generator=gen).to(dtype)
+    got = []
+    for fn in (wa.window_attention, _old_window_path):
+        a.zero_grad()
+        qkv = a.qkv(x).to(dtype).detach().requires_grad_(True)
+        bias = a.bias(mask, (G // M) ** 2).to(dtype)
+        out = fn(qkv, bias, heads)
+        out.backward(dout)
+        got.append((out.detach(), qkv.grad,
+                    a.relative_position_bias_table.grad.clone()))
+    for new, old in zip(*got):
+        assert new.dtype == old.dtype and torch.equal(new, old)
+    assert float(got[0][2].abs().max()) > 0
+
+
+@pytest.mark.parametrize("pairs, plan", [(384, (64, 1)), (192, (32, 2)),
+                                         (96, (16, 4)), (48, (13, 5))],
+                         ids=["stage1", "stage2", "stage3", "stage4"])
+def test_window_attention_launch_plan(pairs, plan):
+    # Swin-L's stages at B 64 on 132 one-block SMs: each grid of pairs ×
+    # chunks ends in the fewest waves of (2 + chunk) image times, and the
+    # chunks cover the batch
+    from learning_embeddings_tpu_torch.ops import window_attention as wa
+
+    assert wa.launch_plan(64, pairs, 132) == plan
+    chunk, n = plan
+    assert (n - 1) * chunk < 64 <= n * chunk
+    # one image, or one slot, still plans
+    assert wa.launch_plan(1, pairs, 132) == (1, 1)
+    assert wa.launch_plan(5, 3, 1) == (5, 1)
+
+
+@pytest.mark.parametrize("fault", ["no_shift_mask", "no_relative_bias"])
+def test_cell_faults_reach_the_window_attention(fault):
+    # each fault the benchmark plants in ShiftedWindowAttention.bias still
+    # changes what the new path computes: the tables' gradients (the shift
+    # mask cuts pairs across regions; no relative bias, no gradient)
+    from benchmark.lib import cell_faults
+
+    images, labels = _inputs(3)
+    logits, grads = _port_grads(_model(), images, labels)
+    with cell_faults.planted(fault):
+        f_logits, f_grads = _port_grads(_model(), images, labels)
+    tables = [k for k in grads if k.endswith("relative_position_bias_table")]
+    assert len(tables) == BLOCKS
+    assert not torch.equal(logits, f_logits)
+    if fault == "no_relative_bias":
+        assert all(f_grads[k] is None for k in tables)
+        return
+    shifted = [k for k in tables if grads[k] is not None and not torch.equal(
+        grads[k], f_grads[k])]
+    # the shifted blocks, one in each of the first three stages
+    assert len(shifted) >= 3
+
+
 @pytest.mark.parametrize("remat", [False, True])
 @pytest.mark.parametrize("profiled", [False, True])
 def test_counts_and_spans_per_step(remat, profiled):
@@ -312,6 +393,8 @@ def test_counts_and_spans_per_step(remat, profiled):
     per = 3 if remat else 2
     c = profiling.counts()
     assert c["attention"] == c["attention_bias"] == BLOCKS * per
+    # the kernel pair runs on a card alone
+    assert c["window_attention"] == 0
     # the windows and their reverse, each forward and backward
     assert c["swin_windows"] == 2 * BLOCKS * per
     names = ("attention.fwd", "attention.bwd", "swin.windows",

@@ -12,6 +12,12 @@ and backward, at the shapes the port's ``ops/attention.py`` serves:
   ``attn_mask``, cuDNN's with the same mask, and the math backend as a
   yardstick (the port pins the faster of the fused ones that gives the
   bias its gradient). A route that raises is reported with its error.
+* The same four stage shapes through ``ops/window_attention.py``, which
+  the Swin trunk calls: q, k, v packed as the qkv projection's (B, nW,
+  144, 3C) output, the same bias, its kernel pair ("kernel") and its plain
+  route ("plain": the softmax math in f32 on the card), the forward with
+  autograd recording (as in a train step: the kernel saves its
+  log-sum-exp).
 
 For each route: device milliseconds of one forward and of one backward
 (CUDA events around `repeats` calls, after warm-up), and both over the
@@ -23,11 +29,17 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
+import sys
 
 import torch
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+# the port, for the window attention's routes
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 #: Swin-L at 384², window 12: (windows, heads, blocks) of each stage
 SWIN_STAGES = ((64, 6, 2), (16, 12, 2), (4, 24, 18), (1, 48, 2))
@@ -69,6 +81,14 @@ def _tensors(g, shape, n):
             .requires_grad_(True) for _ in range(n)]
 
 
+def _time_call(fn, inputs, dout, repeats):
+    """{"fwd_ms", "bwd_ms"} of `fn()`, its forward recorded for autograd
+    and its backward to `inputs` from `dout`."""
+    f = _ms(fn, repeats)
+    fb = _ms(lambda: torch.autograd.grad(fn(), inputs, dout), repeats)
+    return {"fwd_ms": f, "bwd_ms": fb - f}
+
+
 def vit(batch, repeats, g):
     q, k, v, dout = _tensors(g, (batch, 16, 785, 64), 4)
     out = {}
@@ -104,6 +124,30 @@ def swin(batch, repeats, g):
     return out
 
 
+def swin_window(batch, repeats, g):
+    from learning_embeddings_tpu_torch.ops import window_attention as wa
+
+    routes = (("kernel", wa.window_attention),
+              ("plain", wa.window_attention_plain))
+    out = {name: {"stages": []} for name, _ in routes}
+    for nW, H, depth in SWIN_STAGES:
+        (qkv,) = _tensors(g, (batch, nW, 144, 3 * H * 32), 1)
+        (bias,) = _tensors(g, (1, nW * H, 144, 144), 1)
+        (dout,) = _tensors(g, (batch, nW, 144, H * 32), 1)
+        for name, fn in routes:
+            r = _time_call(lambda: fn(qkv, bias, H), (qkv, bias), dout,
+                           repeats)
+            out[name]["stages"].append(dict(r, windows=nW, heads=H,
+                                            blocks=depth))
+        del qkv, bias, dout
+        torch.cuda.empty_cache()
+    for name, _ in routes:
+        st = out[name]["stages"]
+        out[name]["step_ms"] = sum(s["blocks"] * (s["fwd_ms"] + s["bwd_ms"])
+                                   for s in st)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=64)
@@ -116,6 +160,7 @@ def main(argv=None):
         text=True).stdout.strip(), "torch": torch.__version__}
     out["vit_l16_448"] = vit(a.batch, a.repeats, g)
     out["swin_l_384_biased"] = swin(a.batch, a.repeats, g)
+    out["swin_l_384_window"] = swin_window(a.batch, a.repeats, g)
     print(json.dumps(out), flush=True)
 
 
